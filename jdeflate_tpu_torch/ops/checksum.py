@@ -1,0 +1,210 @@
+"""adler32 / crc32 as parallel reductions on the tensor's device, plus the
+GF(2) combine.
+
+Same algebra as jdeflate_tpu/ops/checksum.py, which computes these in XLA
+(no Pallas kernel), so here they are plain PyTorch:
+  - adler32: per-chunk weighted and unweighted byte sums, folded mod 65521.
+  - crc32 (reflected poly 0xEDB88320): each chunk's raw CRC is GF(2)-linear
+    in the chunk's bits, so it is the XOR of per-bit constants selected by
+    the data; chunk states then merge in log depth with GF(2) shift matrices
+    (raw(A||B) = M_len(B) raw(A) ^ raw(B)).
+  - crc32_combine / adler32_combine: host-side scalars.
+
+Word arithmetic runs in int64 masked to 32 bits: PyTorch has no u32
+shifts on the CPU.
+"""
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from ..utils import device as _device
+
+ADLER_BASE = 65521
+CRC_POLY = 0xEDB88320  # reflected
+_M32 = 0xFFFFFFFF
+_ADLER_CHUNK = 512
+_CRC_CHUNK = 256        # bytes per chunk
+
+
+@functools.lru_cache(maxsize=None)
+def _crc_tables() -> np.ndarray:
+    """Slice-by-8 tables, shape (8, 256) uint32."""
+    t = np.zeros((8, 256), dtype=np.uint64)
+    for i in range(256):
+        c = np.uint64(i)
+        for _ in range(8):
+            c = (c >> np.uint64(1)) ^ (np.uint64(CRC_POLY) * (c & np.uint64(1)))
+        t[0, i] = c
+    for k in range(1, 8):
+        for i in range(256):
+            c = t[k - 1, i]
+            t[k, i] = (c >> np.uint64(8)) ^ t[0, int(c & np.uint64(0xFF))]
+    return t.astype(np.uint32)
+
+
+def _gf2_matmul(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """Product of two GF(2) 32x32 matrices, each stored as 32 uint32 columns
+    (column j of the result = a applied to column j of b)."""
+    out = np.zeros(32, dtype=np.uint32)
+    for j in range(32):
+        v = b[j]
+        acc = np.uint32(0)
+        for k in range(32):
+            if (int(v) >> k) & 1:
+                acc ^= a[k]
+        out[j] = acc
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _shift_matrix_pow2(log2_bytes: int) -> tuple[int, ...]:
+    """Matrix advancing a raw CRC state over 2^log2_bytes zero bytes, as 32
+    columns (column j = image of bit j)."""
+    if log2_bytes == 0:
+        t0 = _crc_tables()[0]
+        m = np.zeros(32, dtype=np.uint32)
+        for j in range(32):
+            s = np.uint32(1) << np.uint32(j)
+            m[j] = (s >> np.uint32(8)) ^ t0[int(s & np.uint32(0xFF))]
+        return tuple(int(x) for x in m)
+    prev = np.array(_shift_matrix_pow2(log2_bytes - 1), dtype=np.uint32)
+    return tuple(int(x) for x in _gf2_matmul(prev, prev))
+
+
+def _apply_matrix_host(m, crc: int) -> int:
+    acc = 0
+    for j in range(32):
+        if (crc >> j) & 1:
+            acc ^= m[j]
+    return acc
+
+
+def _advance_host(crc: int, nbytes: int) -> int:
+    """Advance a raw CRC state over nbytes zero bytes (bit decomposition)."""
+    k = 0
+    while nbytes:
+        if nbytes & 1:
+            crc = _apply_matrix_host(_shift_matrix_pow2(k), crc)
+        nbytes >>= 1
+        k += 1
+    return crc
+
+
+def crc32_combine(crc1: int, crc2: int, len2: int) -> int:
+    """crc32(A||B) from crc32(A), crc32(B), len(B): advance crc1 through len2
+    zero bytes in GF(2), xor crc2 (the pre/post complements cancel)."""
+    return (_advance_host(crc1 & _M32, len2) ^ (crc2 & _M32)) & _M32
+
+
+def adler32_combine(adler1: int, adler2: int, len2: int) -> int:
+    """adler32(A||B) from the two parts (zlib adler32_combine algebra)."""
+    rem = len2 % ADLER_BASE
+    s1a, s2a = adler1 & 0xFFFF, (adler1 >> 16) & 0xFFFF
+    s1b, s2b = adler2 & 0xFFFF, (adler2 >> 16) & 0xFFFF
+    s1 = (s1a + s1b - 1) % ADLER_BASE
+    s2 = (s2a + s2b + rem * ((s1a - 1) % ADLER_BASE)) % ADLER_BASE
+    s1 = (s1 + ADLER_BASE) % ADLER_BASE
+    s2 = (s2 + ADLER_BASE) % ADLER_BASE
+    return (s2 << 16) | s1
+
+
+@functools.lru_cache(maxsize=None)
+def _bitlinear_consts(c: int) -> np.ndarray:
+    """(c//4, 32) u32: contribution of each bit of each little-endian u32
+    word of a c-byte chunk to the chunk's raw CRC (a byte v at position p
+    contributes M_{c-1-p} . T0[v], and T0 is linear in v's bits)."""
+    t0 = _crc_tables()[0]
+    m8 = np.array(_shift_matrix_pow2(0), dtype=np.uint32)
+    jj = np.arange(32, dtype=np.uint32)
+    kb = np.zeros((c, 8), np.uint32)
+    cur = t0[1 << np.arange(8)].astype(np.uint32)        # position c-1
+    for p in range(c - 1, -1, -1):
+        kb[p] = cur
+        bits = (cur[:, None] >> jj) & 1                  # (8, 32)
+        cur = np.bitwise_xor.reduce(
+            np.where(bits.astype(bool), m8[None, :], 0), axis=1)
+    kw = np.zeros((c // 4, 32), np.uint32)
+    for j in range(32):
+        kw[:, j] = kb[(np.arange(c // 4) * 4) + (j >> 3), j & 7]
+    return kw
+
+
+def _as_bytes_tensor(data, device) -> torch.Tensor:
+    if isinstance(data, torch.Tensor):
+        return data.reshape(-1).to(torch.uint8)
+    arr = np.frombuffer(memoryview(data), dtype=np.uint8)
+    return torch.from_numpy(arr.copy()).to(_device.resolve(device))
+
+
+def _xor_reduce_cols(v: torch.Tensor) -> torch.Tensor:
+    """XOR over dim 1 of (m, 2^k) int64 by halving."""
+    while v.shape[1] > 1:
+        v = v[:, 0::2] ^ v[:, 1::2]
+    return v[:, 0]
+
+
+def _apply_matrix(m: torch.Tensor, crc: torch.Tensor) -> torch.Tensor:
+    """GF(2) 32x32 matrix (32 int64 columns) times a vector of states."""
+    acc = torch.zeros_like(crc)
+    for j in range(32):
+        acc = acc ^ torch.where(((crc >> j) & 1) > 0, m[j],
+                                torch.zeros_like(crc))
+    return acc
+
+
+def crc32(data, init: int = 0, device="cuda") -> int:
+    """crc32 of a byte buffer (zlib convention), computed on `device` (or on
+    the device of a uint8 tensor)."""
+    t = _as_bytes_tensor(data, device)
+    n = t.numel()
+    if n == 0:
+        return init & _M32
+    c = _CRC_CHUNK
+    pad = (-n) % c
+    if pad:     # front zeros are invisible to the raw CRC (zero state)
+        t = torch.cat([torch.zeros(pad, dtype=torch.uint8, device=t.device), t])
+    words = t.view(torch.int32).to(torch.int64).reshape(-1, c // 4) & _M32
+    K = torch.as_tensor(_bitlinear_consts(c).astype(np.int64),
+                        device=t.device)                 # (c//4, 32)
+    v = torch.zeros_like(words)
+    for j in range(32):
+        v = v ^ torch.where(((words >> j) & 1) > 0, K[:, j], 0)
+    raw = _xor_reduce_cols(v)
+    level = c.bit_length() - 1      # chunk bytes = 2^level
+    while raw.shape[0] > 1:
+        if raw.shape[0] % 2:
+            raw = torch.cat([raw.new_zeros(1), raw])     # front zero chunk
+        m = torch.as_tensor(_shift_matrix_pow2(level), dtype=torch.int64,
+                            device=t.device)
+        raw = _apply_matrix(m, raw[0::2]) ^ raw[1::2]
+        level += 1
+    # std crc32(M, init) = ~( raw(M) ^ M_{8n}(~init) )
+    adv = _advance_host((~init) & _M32, n)
+    return (~(int(raw[0]) ^ adv)) & _M32
+
+
+def adler32(data, init: int = 1, device="cuda") -> int:
+    """adler32 of a byte buffer, computed on `device` (or on the device of a
+    uint8 tensor)."""
+    t = _as_bytes_tensor(data, device)
+    n = t.numel()
+    if n == 0:
+        return init & _M32
+    c = _ADLER_CHUNK
+    pad = (-n) % c
+    if pad:     # trailing zeros add nothing to either sum
+        t = torch.cat([t, torch.zeros(pad, dtype=torch.uint8, device=t.device)])
+    d = t.to(torch.int64).reshape(-1, c)
+    s_c = d.sum(1)
+    w_c = (d * torch.arange(c, device=t.device)).sum(1)
+    o_c = torch.arange(d.shape[0], device=t.device) * c
+    s1_0, s2_0 = init & 0xFFFF, (init >> 16) & 0xFFFF
+    s1 = (s1_0 + int(s_c.sum())) % ADLER_BASE
+    # s2 = s2_0 + n*s1_0 + sum over bytes of (n - pos) * b, per chunk
+    # (n - o_c) * S_c - W_c, folded mod BASE before the sum
+    term = ((n - o_c) * s_c - w_c) % ADLER_BASE
+    s2 = (s2_0 + n * s1_0 + int(term.sum())) % ADLER_BASE
+    return (s2 << 16) | s1

@@ -1,0 +1,23 @@
+"""Device choice for the package's entry points.
+
+Every entry point takes ``device`` (default ``"cuda"``). A CUDA device that
+is not there is an error, never a silent move to the CPU; ``"cpu"`` runs the
+plain PyTorch versions of the kernels.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import errors
+
+
+def resolve(device) -> torch.device:
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise errors.IncorrectUseError(
+                "device 'cuda' requested but torch.cuda.is_available() is "
+                "False; pass device='cpu' to run the plain versions")
+    elif dev.type != "cpu":
+        raise errors.IncorrectUseError(f"unsupported device {device!r}")
+    return dev
