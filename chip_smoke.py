@@ -5,15 +5,21 @@ Run from the repository root with no arguments:
     python3 chip_smoke.py
 
 It builds the CUDA kernels from jdeflate_tpu_torch/csrc, then drives the
-port's main path: a 32 MiB Silesia-like corpus compressed by zlib at level
-6, indexed by RawInflater.build_index and decoded on the GPU through the
-window-walk and token-expansion kernels, raw and gzip-framed. It holds each
-kernel against its plain PyTorch version on the main path's inputs, checks
-that a tampered window anchor errs and falls back to the native decoder,
-and times everything. Any failure exits non-zero. The last line is
-{"ok": true, "device": {...}}; the line with {"kernels": [...]} before it
-lists every kernel with its launches, error against the plain version,
-time, bound and the plain version's time.
+port's two paths on a 32 MiB Silesia-like corpus. Decode: the corpus
+compressed by zlib at level 6, indexed by RawInflater.build_index and
+decoded on the GPU through the window-walk and token-expansion kernels, raw
+and gzip-framed; a tampered window anchor must err and fall back to the
+native decoder. Encode: compress_with_index at level 6 with 64 KiB blocks in
+batches of 16 (the bench's round trip) through the match-walk kernel; the
+gzip stream must inflate in zlib and in the port's decoder with every
+windowed batch at err 0, and a FEXTRA self-indexed member (of the first
+MiB: the field holds at most 64 KiB of index) must decode with no index
+handed over. Each kernel is held against its plain PyTorch version
+on the main path's inputs, the encoder's integer stages on the card against
+the same stages on the CPU, and everything is timed. Any failure exits
+non-zero. The last line is {"ok": true, "device": {...}}; the line with
+{"kernels": [...]} before it lists every kernel with its launches, error
+against the plain version, time, bound and the plain version's time.
 
 Without a CUDA device it exits non-zero and prints no result.
 """
@@ -121,26 +127,183 @@ def gpu_ms(fn, reps: int = 3) -> float:
     return a.elapsed_time(b) / reps
 
 
-def profile_decode(dec, raw, idx, span_s: float) -> None:
-    """Device time by kernel over one decode (torch.profiler), and the
-    device's busy share of the decode's span."""
+def profile_run(what: str, fn, span_s: float) -> None:
+    """Device time by kernel over one run of fn (torch.profiler), and the
+    device's busy share of the run's span. Only device-side events count:
+    an operator's row carries the device time of the kernels it launched,
+    which the kernels' own rows hold already."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        dec.decompress(raw, index=idx)
+        fn()
         torch.cuda.synchronize()
-    rows = [(getattr(e, "self_device_time_total", 0) / 1e3, e.count, e.key)
-            for e in prof.key_averages()]
+    rows = [(e.self_device_time_total / 1e3, e.count, e.key)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(r[0] for r in rows)
     if busy <= 0:
-        print("profile: the profiler saw no device time", flush=True)
+        print(f"profile {what}: the profiler saw no device time", flush=True)
         return
     top = sorted(rows, reverse=True)[:6]
-    print(f"profile: device busy {busy:.1f} ms of the {span_s * 1e3:.1f} ms "
-          f"span ({100 * busy / (span_s * 1e3):.1f}%); top: "
+    print(f"profile {what}: device busy {busy:.1f} ms of the "
+          f"{span_s * 1e3:.1f} ms span ({100 * busy / (span_s * 1e3):.1f}%); "
+          f"{sum(r[1] for r in rows)} device events; top: "
           + "; ".join(f"{k[:48]} x{c} {ms:.1f} ms" for ms, c, k in top),
           flush=True)
+
+
+def timed_runs(fn, check):
+    """Median wall (host clock to a synchronise) and device span (CUDA
+    events) of 3 runs of fn after one warm run; check(result) each time."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    walls, spans = [], []
+    for _ in range(3):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        a.record()
+        res = fn()
+        b.record()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        spans.append(a.elapsed_time(b) / 1e3)
+        check(res)
+    return statistics.median(walls), statistics.median(spans), walls
+
+
+def encode_phase(data: bytes, zlib6_len: int, card: str) -> dict:
+    """Phase 7: the level-6 encoder on the card. Returns the match-walk
+    kernel's entry of the kernels line."""
+    import torch
+    from jdeflate_tpu_torch.codec import deflate as D
+    from jdeflate_tpu_torch.codec import inflate as I
+    from jdeflate_tpu_torch.ops import lz77
+    from jdeflate_tpu_torch.stream import zstrm
+    enc_kw = dict(level=6, block_size=1 << 16, batch=16)
+    nbatch = -(-len(data) // (enc_kw["block_size"] * enc_kw["batch"]))
+
+    # ---- 7a. main path: compress_with_index -> decompress, on the card
+    lz77.match_walk.launches = 0
+    t0 = time.perf_counter()
+    gz, idx, hl = zstrm.compress_with_index(data, format="gzip",
+                                            device="cuda", **enc_kw)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = lz77.match_walk.launches
+    if launches != nbatch:
+        fail(f"match walk launches {launches} != {nbatch} batches")
+    if zlib.decompress(gz, 31) != data:
+        fail("zlib does not inflate the port's gzip stream to the corpus")
+    I.STATS_LOG.clear()
+    if zstrm.decompress(gz, index=idx, header_len=hl, device="cuda") != data:
+        fail("the port does not decode its own stream to the corpus")
+    kinds = [k for k, _, _ in I.STATS_LOG]
+    if "win" not in kinds or any(e != 0 for _, _, e in I.STATS_LOG):
+        fail(f"own-stream decode: batch kinds {set(kinds)}, errs "
+             f"{[e for _, _, e in I.STATS_LOG if e]}")
+    # bytes the logged batches produced; the native decoder did the rest
+    # (a batch whose output disagrees with the index ends the device path:
+    # ROADMAP C7)
+    dev_bytes = sum(p for _, p, _ in I.STATS_LOG)
+    # a FEXTRA field holds at most 65,535 bytes of index (about 1.7 MiB of
+    # this corpus), so the self-indexed member takes the first MiB
+    part = data[:1 << 20]
+    emb = zstrm.compress(part, format="gzip", embed_index=True,
+                         device="cuda", **enc_kw)
+    I.STATS_LOG.clear()
+    if zstrm.decompress(emb, device="cuda") != part or "win" not in [
+            k for k, _, _ in I.STATS_LOG]:
+        fail("the FEXTRA self-indexed member does not decode on the "
+             "windowed path")
+    raw_len = len(gz) - hl - 8
+    print(f"encode main path: {len(data)} B -> {raw_len} B raw "
+          f"(ratio {len(data) / raw_len:.4f}; zlib level 6 {zlib6_len} B, "
+          f"{raw_len / zlib6_len:.4f}x zlib), {len(idx['block_bits'])} index "
+          f"entries, match walk launches {launches} = batches; first call "
+          f"{first_s:.2f} s; zlib inflate, own windowed decode "
+          f"({kinds.count('win')} win batches at err 0; the batches cover "
+          f"{dev_bytes} B, the native decoder the other "
+          f"{len(data) - dev_bytes} B) and a FEXTRA member of the first MiB "
+          f"({len(emb)} B) ok", flush=True)
+
+    # ---- 7b. encode wall and device span, then a profile of one encode
+    enc = D.RawDeflater(device="cuda", **enc_kw)
+
+    def one():
+        return enc.compress(data)
+
+    enc.capture_calls = True
+    wall, span, walls = timed_runs(one, lambda r: r[0] == gz[hl:-8] or fail(
+        "timed encode differs from the main path's stream"))
+    calls, statics = list(enc.last_calls), enc.call_statics
+    enc.capture_calls = False
+    print(f"encode ({card}): wall {wall * 1e3:.1f} ms = "
+          f"{len(data) / wall / 1e9:.4f} GB/s; device span "
+          f"{span * 1e3:.1f} ms; runs {[round(w * 1e3, 1) for w in walls]} ms",
+          flush=True)
+    profile_run("encode", one, span)
+
+    # ---- 7c. the match walk against its plain version on every batch's
+    # inputs, and the integer stages on the card against the CPU
+    bl = statics[0]
+    cfg = D.levels_mod.get_level(enc_kw["level"])
+    win = []
+    for call in calls:
+        length, dist = D.encode_batch(*call, *statics, stage="match")
+        blen = torch.clamp(call[2] - torch.arange(
+            statics[1], device="cuda") * bl, 0, bl)
+        take = lz77.parse_take(length, dist, blen, cfg.lazy, cfg.good_length)
+        cn, ln = lz77.walk_inputs(length, take, blen, bl)
+        win.append((cn, ln, blen.to(torch.int32)))
+    err = 0
+    for cn, ln, blen in win[:2]:
+        err = max(err, max_abs_err([lz77.match_walk(cn, ln, blen, bl)],
+                                   [lz77.match_walk_ref(cn, ln, blen, bl)]))
+    if err:
+        fail(f"match walk differs from its plain version: {err}")
+    call_cpu = (calls[0][0].cpu(), *calls[0][1:])
+    for stage in ("match", "walk"):
+        gpu = D.encode_batch(*calls[0], *statics, stage=stage)
+        cpu = D.encode_batch(*call_cpu, *statics, stage=stage)
+        if any(not torch.equal(g.cpu(), c) for g, c in zip(gpu, cpu)):
+            fail(f"encode stage {stage!r} on the card differs from the CPU")
+    print("match walk equals its plain version on 2 batches (max abs err "
+          "0); stages 'match' and 'walk' of batch 0 equal on card and CPU",
+          flush=True)
+
+    ms, plain, bound, counts = [], [], [], []
+    for cn, ln, blen in win:
+        ms.append(gpu_ms(lambda: lz77.match_walk(cn, ln, blen, bl)))
+        plain.append(gpu_ms(lambda: lz77.match_walk_ref(cn, ln, blen, bl),
+                            1))
+        c = (lz77.match_walk(cn, ln, blen, bl)[:, 0] - 1).cpu()
+        counts.append(c)
+        # least bytes: the two words each emitted match reads (its length,
+        # then the next candidate), the start word and block length of each
+        # block, and the whole plist written once
+        nb = cn.shape[0]
+        moved = 4 * (2 * int(c.sum()) + 2 * nb) + 4 * nb * lz77.WALK_CAP
+        bound.append(moved / HBM_BYTES_PER_S * 1e3)
+    per_step = [m * 1e6 / int(c.max()) for m, c in zip(ms, counts)
+                if int(c.max()) > 0]
+    print(f"lz77walk ({card}): {statistics.mean(ms):.3f} ms/launch x "
+          f"{launches} per 32 MiB encode (range {min(ms):.3f}-{max(ms):.3f}); "
+          f"plain {statistics.mean(plain):.3f} ms; bound "
+          f"{statistics.mean(bound):.5f} ms; matches per block mean "
+          f"{float(torch.cat(counts).float().mean()):.0f}, max per launch "
+          f"mean {statistics.mean(int(c.max()) for c in counts):.0f}; "
+          f"latency chain {statistics.mean(per_step):.1f} ns per step of "
+          "the longest block", flush=True)
+    return {"name": "lz77walk", "route": "cuda",
+            "source": "jdeflate_tpu_torch/csrc/lz77walk.cu",
+            "replaces": "jdeflate_tpu/ops/lz77.py:388",
+            "launches": launches, "max_abs_err": err,
+            "ms": statistics.mean(ms), "plain_ms": statistics.mean(plain),
+            "bound_ms": statistics.mean(bound), "bound_by": "bytes",
+            "library_ms": None}
 
 
 def max_abs_err(got, want) -> int:
@@ -175,7 +338,7 @@ def main() -> None:
     print(f"python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda}", flush=True)
     t0 = time.perf_counter()
-    built = _cuda.build(["walk", "expand"])
+    built = _cuda.build(["walk", "expand", "lz77walk"])
     build_s = time.perf_counter() - t0
     for name, (secs, log) in built.items():
         regs = [ln.strip() for ln in log.splitlines() if "registers" in ln]
@@ -292,22 +455,9 @@ def main() -> None:
         exp_bound.append(exp_bytes / HBM_BYTES_PER_S * 1e3)
         ntok += int((res[0] != 0).sum())
 
-    dec.decompress(raw, index=idx)                       # warm
-    torch.cuda.synchronize()
-    walls, spans = [], []
-    for _ in range(3):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        t0 = time.perf_counter()
-        a.record()
-        o = dec.decompress(raw, index=idx)
-        b.record()
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
-        spans.append(a.elapsed_time(b) / 1e3)
-        if o != data:
-            fail("timed decode differs from the corpus")
-    wall, span = statistics.median(walls), statistics.median(spans)
+    wall, span, walls = timed_runs(
+        lambda: dec.decompress(raw, index=idx),
+        lambda o: o == data or fail("timed decode differs from the corpus"))
     print(f"decode ({card}): wall {wall * 1e3:.1f} ms = "
           f"{len(data) / wall / 1e9:.4f} GB/s; device span "
           f"{span * 1e3:.1f} ms = {len(data) / span / 1e9:.4f} GB/s; "
@@ -322,7 +472,9 @@ def main() -> None:
           f"plain {statistics.mean(exp_plain):.3f} ms; bound "
           f"{statistics.mean(exp_bound):.4f} ms; {ntok} tokens, "
           f"{sum(exp_ms) * 1e6 / ntok:.1f} ns/token", flush=True)
-    profile_decode(dec, raw, idx, span)
+    profile_run("decode", lambda: dec.decompress(raw, index=idx), span)
+
+    enc_kernel = encode_phase(data, len(raw), card)
 
     kernels = [
         {"name": "walk", "route": "cuda",
@@ -341,6 +493,7 @@ def main() -> None:
          "plain_ms": statistics.mean(exp_plain),
          "bound_ms": statistics.mean(exp_bound), "bound_by": "bytes",
          "library_ms": None},
+        enc_kernel,
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -1,5 +1,10 @@
-"""jdeflate-tpu-torch: the DEFLATE (RFC 1951/1950/1952) decoder of
+"""jdeflate-tpu-torch: the DEFLATE (RFC 1951/1950/1952) codec of
 jdeflate_tpu ported to PyTorch, with hand-written CUDA kernels for Hopper.
+
+Encode path: RawDeflater encodes batches of fixed-size blocks on the GPU
+(hash-sorted match finding, the sequential parse as the match-walk kernel
+csrc/lz77walk.cu, Huffman trees, bit packing) and returns the stream with
+its parallel-decode index; the same bytes and index as the JAX package.
 
 Decode path: an index of block offsets and 32-bit window anchors (from the
 encoder, from a FEXTRA header, or from RawInflater.build_index) lets every
@@ -10,17 +15,20 @@ versions. The package imports neither jax nor jdeflate_tpu.
 
 Quick API:
     import jdeflate_tpu_torch as jdt
-    data = jdt.decompress(blob, index=idx)
+    blob, idx, hl = jdt.compress_with_index(data, format="gzip")
+    data = jdt.decompress(blob, index=idx, header_len=hl)
 """
+from .codec.deflate import RawDeflater
 from .codec.inflate import RawInflater
 from .ops.checksum import adler32, adler32_combine, crc32, crc32_combine
-from .stream.zstrm import decompress
+from .stream.zstrm import compress, compress_with_index, decompress
 from .utils import errors
 
 __version__ = "0.1.0"
 
 __all__ = [
-    "decompress", "RawInflater",
+    "compress", "compress_with_index", "decompress",
+    "RawDeflater", "RawInflater",
     "adler32", "adler32_combine", "crc32", "crc32_combine",
     "errors", "__version__",
 ]

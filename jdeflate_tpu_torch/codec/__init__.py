@@ -1,3 +1,4 @@
+from .deflate import RawDeflater
 from .inflate import RawInflater
 
-__all__ = ["RawInflater"]
+__all__ = ["RawDeflater", "RawInflater"]

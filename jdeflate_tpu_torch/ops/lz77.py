@@ -1,0 +1,438 @@
+"""LZ77 match finding and parse resolution (port of jdeflate_tpu/ops/lz77.py).
+
+Reference behavior reproduced: the deflator's per-hash chains (hash mult
+0x1e35a7bd, src/deflator.c:32-70, 1930-1947) become a (hash, pos) sort whose
+k preceding same-hash entries are the first k candidates the chain walk
+visits; lengths are exact up to the 258-byte cap (getmatchlength,
+src/deflator.c:1977-2101); the parse is greedy for levels 1-5 and lazy for
+6-9 (compress1/compress2) as a local decision rule (parse_take) plus one
+sequential walk in match space: the kernel csrc/lz77walk.cu
+(match_walk), with match_walk_ref its plain version.
+
+Arrays keep the reference's flat batch layout: (B, row) rows with row =
+halo + bl + pad. u32 words and hashes live in int64 tensors masked to 32
+bits (PyTorch has no u32 shifts on the CPU): the hash
+(w * 0x1E35A7BD) >> 17 is ((w * 0x1E35A7BD) & 0xFFFFFFFF) >> 17 here.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..formats import constants as C
+
+HASH_MULT = 0x1E35A7BD            # cf. deflator.c:1946
+HASH_BITS = 15
+M32 = 0xFFFFFFFF
+
+WALK_CAP = 176 * 128              # plist slots per block (>= bl/3 + 128)
+
+
+def _hash(w, bits: int):
+    return ((w * HASH_MULT) & M32) >> (32 - bits)
+
+
+def _floor_log2(x: torch.Tensor) -> torch.Tensor:
+    """floor(log2(x)) for positive ints <= 2^24 via f32 exponent bits."""
+    bits = x.to(torch.float32).view(torch.int32).to(torch.int64)
+    return ((bits >> 23) & 0xFF) - 127
+
+
+def _words_le_flat(ext: torch.Tensor) -> torch.Tensor:
+    """w[p] = the 4 bytes at p as a little-endian u32 over a flat buffer
+    (bytes past the end read as zero)."""
+    e = ext.to(torch.int64)
+    z = torch.zeros(3, dtype=torch.int64, device=e.device)
+    ez = torch.cat([e, z])
+    n = e.shape[0]
+    return (e | (ez[1:n + 1] << 8) | (ez[2:n + 2] << 16)
+            | (ez[3:n + 3] << 24))
+
+
+def _lead_eq_bytes(x: torch.Tensor) -> torch.Tensor:
+    """Number of leading (low-order) equal bytes given the XOR x."""
+    return (((x & 0xFF) == 0).to(torch.int64)
+            + ((x & 0xFFFF) == 0).to(torch.int64)
+            + ((x & 0xFFFFFF) == 0).to(torch.int64))
+
+
+def _cmp16(w, a, b):
+    """Exact common-prefix length of ext[a:] vs ext[b:] capped at 16 bytes.
+    a, b: flat indices, clamped into w (an index outside belongs to a slot
+    whose result the caller discards)."""
+    hi = w.shape[0] - 1
+    l = torch.zeros_like(a)
+    run = torch.ones_like(a, dtype=torch.bool)
+    first_x = torch.zeros_like(a)
+    for t in range(4):
+        wa = w[torch.clamp(a + 4 * t, 0, hi)]
+        wb = w[torch.clamp(b + 4 * t, 0, hi)]
+        eq = wa == wb
+        first_x = torch.where(run & ~eq, wa ^ wb, first_x)
+        l = l + torch.where(run & eq, 4, 0)
+        run = run & eq
+    return torch.clamp(
+        l + torch.where(l < 16, _lead_eq_bytes(first_x), 0), max=16)
+
+
+def _shift_left_cols(a, k: int):
+    """b[:, j] = a[:, j + k], zero past the end."""
+    return torch.cat([a[:, k:], torch.zeros_like(a[:, :k])], 1)
+
+
+def find_matches_batch(ext: torch.Tensor, block_len: torch.Tensor,
+                       valid_from: torch.Tensor, halo: int, bl: int, pad: int,
+                       k: int, exact_ext: bool = True, ext_top: int = 8,
+                       ext_rounds: int = 4, rescue: bool = False,
+                       probe_words: int = 8, ext_mdiv: int = 16):
+    """Best match per position for a batch of blocks.
+
+    ext: (B, halo + bl + pad) u8 rows (halo history + block + zero pad).
+    block_len, valid_from: (B,) ints. Returns (length, dist): (B, bl) int64.
+
+    The 32-byte probe prefixes are co-sorted with the (hash, pos) key, so
+    the chain walk becomes k shifted compares over the sorted arrays; the
+    scatter by sorted position returns results to position order. Lengths
+    then extend by the link rule LCP(i,d) = s + LCP(i+s,d), a top-T distance
+    pass of suffix runs, and compacted gather-compare rounds.
+    """
+    B = ext.shape[0]
+    dev = ext.device
+    row = halo + bl + pad
+    nh = halo + bl
+    e64 = ext.to(torch.int64)
+
+    def wcol(off):
+        return (e64[:, off:off + nh] | (e64[:, off + 1:off + 1 + nh] << 8)
+                | (e64[:, off + 2:off + 2 + nh] << 16)
+                | (e64[:, off + 3:off + 3 + nh] << 24))
+
+    PW = probe_words
+    sw0 = [wcol(4 * t) for t in range(PW)]
+    h = _hash(sw0[0], HASH_BITS)
+    pos = torch.arange(nh, dtype=torch.int64, device=dev)[None, :].expand(
+        B, nh)
+    skey, perm = torch.sort((h << 17) | pos, dim=1)     # keys are unique
+    sw = [s.gather(1, perm) for s in sw0]
+    spos = skey & 0x1FFFF
+    shash = skey >> 17
+    svfrom = valid_from.to(torch.int64)[:, None]
+
+    best_len = torch.zeros((B, nh), dtype=torch.int64, device=dev)
+    best_dist = torch.zeros((B, nh), dtype=torch.int64, device=dev)
+    for kk in range(1, k + 1):
+        cpos = torch.roll(spos, kk, 1)
+        chash = torch.roll(shash, kk, 1)
+        dist = spos - cpos
+        ok = ((pos >= kk) & (chash == shash) & (dist > 0)
+              & (dist <= C.WINDOW_SIZE) & (cpos >= svfrom))
+        l = torch.zeros((B, nh), dtype=torch.int64, device=dev)
+        run = torch.ones((B, nh), dtype=torch.bool, device=dev)
+        firstx = torch.zeros((B, nh), dtype=torch.int64, device=dev)
+        for t in range(PW):
+            ct = torch.roll(sw[t], kk, 1)
+            eq = sw[t] == ct
+            firstx = torch.where(run & ~eq, sw[t] ^ ct, firstx)
+            l = l + torch.where(run & eq, 4, 0)
+            run = run & eq
+        l32 = torch.clamp(
+            l + torch.where(l < 4 * PW, _lead_eq_bytes(firstx), 0),
+            max=4 * PW)
+        l32 = torch.where(ok, l32, 0)
+        better = l32 > best_len
+        best_len = torch.where(better, l32, best_len)
+        best_dist = torch.where(better, dist, best_dist)
+
+    # back to position order: spos is a permutation of [0, nh) per row
+    plen = torch.zeros_like(best_len).scatter_(1, spos, best_len)
+    pdist = torch.zeros_like(best_dist).scatter_(1, spos, best_dist)
+
+    if rescue:
+        # 3-byte secondary hash (levels >= 6): the reference's QBITS=14
+        # short-match table (deflator.c:49-70, 2676-2711), rejecting len-3
+        # beyond offset 8192 (deflator.c:2829-2831)
+        w0p = sw0[0]
+        h3 = _hash(w0p & 0xFFFFFF, 14)
+        sk3, perm3 = torch.sort((h3 << 17) | pos, dim=1)
+        s3w = w0p.gather(1, perm3)
+        sp3 = sk3 & 0x1FFFF
+        sh3 = sk3 >> 17
+        r_len = torch.zeros((B, nh), dtype=torch.int64, device=dev)
+        r_dist = torch.zeros((B, nh), dtype=torch.int64, device=dev)
+        for kk in (1, 2):
+            cp = torch.roll(sp3, kk, 1)
+            chh = torch.roll(sh3, kk, 1)
+            cw = torch.roll(s3w, kk, 1)
+            dist3 = sp3 - cp
+            ok3 = ((pos >= kk) & (chh == sh3) & (dist3 > 0)
+                   & (dist3 <= 8192) & (cp >= svfrom)
+                   & (((s3w ^ cw) & 0xFFFFFF) == 0) & (r_len == 0))
+            r_len = torch.where(ok3, 3, r_len)
+            r_dist = torch.where(ok3, dist3, r_dist)
+        r_len = torch.zeros_like(r_len).scatter_(1, sp3, r_len)
+        r_dist = torch.zeros_like(r_dist).scatter_(1, sp3, r_dist)
+        use3 = (plen < C.MIN_MATCH) & (r_len == 3)
+        plen = torch.where(use3, 3, plen)
+        pdist = torch.where(use3, r_dist, pdist)
+
+    # link extension: LCP(i,d) = s + LCP(i+s,d) when the distance matches
+    for shift in (16, 32, 64, 128):
+        nlen = _shift_left_cols(plen, shift)
+        ndist = _shift_left_cols(pdist, shift)
+        linked = (plen == shift) & (ndist == pdist)
+        plen = torch.where(linked, shift + nlen, plen)
+    n256l = _shift_left_cols(plen, 256)
+    n256d = _shift_left_cols(pdist, 256)
+    plen = torch.where((plen == 256) & (n256d == pdist) & (n256l >= 2),
+                       258, plen)
+
+    bpos = torch.arange(bl, dtype=torch.int64, device=dev)[None, :]
+    blen = block_len.to(torch.int64)[:, None]
+
+    def finish(plen):
+        length = torch.minimum(torch.clamp(plen[:, halo:], max=C.MAX_MATCH),
+                               blen - bpos)
+        length = torch.where(length >= C.MIN_MATCH, length, 0)
+        dist = torch.where(length > 0, pdist[:, halo:], 0)
+        return length, dist
+
+    if not exact_ext:
+        return finish(plen)
+
+    # Stage 1: for each of the T distances with the most boundary-capped
+    # mass, the suffix run of eq[j] = (ext[j] == ext[j-d]) is the exact LCP
+    # at every position whose match distance is d
+    T = ext_top
+    pl2 = plen
+    stuck0 = (pl2 > 0) & (pl2 % 16 == 0) & (pl2 < 258)
+    dws = torch.where(stuck0, pdist, 0).reshape(-1)[::4]
+    hist = torch.bincount(dws, minlength=C.WINDOW_SIZE + 1)
+    hist[0] = 0
+    # lax.top_k breaks ties by lower index: a stable descending sort does too
+    topd = torch.sort(hist, descending=True, stable=True).indices[:T]
+    col_row = torch.arange(row, dtype=torch.int64, device=dev)[None, :]
+    BIG = 1 << 20
+    for t in range(T):
+        d = topd[t]
+        # jnp.roll(ext, d)[j] = ext[j - d] for j >= d (the rest is masked)
+        src = torch.clamp(col_row - d, min=0).expand(B, row)
+        eq = (e64 == e64.gather(1, src)) & (col_row >= d)
+        nz = torch.where(eq, BIG, col_row)
+        nnm = torch.flip(torch.cummin(torch.flip(nz, [1]), 1).values, [1])
+        runlen = torch.clamp(nnm, max=row) - col_row
+        runlen = torch.clamp(runlen[:, :nh], max=C.MAX_MATCH)
+        sel = (pdist == d) & (pl2 > 0)
+        pl2 = torch.where(sel, runlen, pl2)
+    plen = pl2
+
+    # Stage 2: compacted gather-compare rounds for the residue, ending early
+    # when no boundary survivors remain (one host read per round)
+    wflat = _words_le_flat(ext.reshape(-1))
+    N = B * nh
+    M = max(N // ext_mdiv, 1024)
+    pl = plen.reshape(-1)
+    pd = pdist.reshape(-1)
+    fidx = torch.arange(N, dtype=torch.int64, device=dev)
+    in_block = (fidx % nh) >= halo
+    stuck = (pl > 0) & (pl % 16 == 0) & (pl < 258) & in_block
+    sidx = torch.sort(torch.where(stuck, fidx, -1 - fidx)).values[-M:]
+    valid = sidx >= 0
+    si = torch.clamp(sidx, min=0)
+    qi_s = si + (si // nh) * pad            # flat (B, nh) -> flat row index
+    cand_s = qi_s - pd[si]
+    lx = torch.where(valid, pl[si], 0)
+    for _ in range(ext_rounds):
+        active = (lx > 0) & (lx % 16 == 0) & (lx < 258)
+        if not bool(active.any()):
+            break
+        add = _cmp16(wflat, qi_s + lx, cand_s + lx)
+        lx = torch.where(active, lx + add, lx)
+    plx = torch.cat([pl, pl.new_zeros(1)])
+    plx.scatter_(0, torch.where(valid, si, N),
+                 torch.clamp(lx, max=C.MAX_MATCH))
+    return finish(plx[:N].reshape(B, nh))
+
+
+def _match_cost_bits(length, dist):
+    """Approximate emitted bits of a match token: ~7-bit length code +
+    length extra + ~6-bit distance code + distance extra."""
+    n_ = torch.clamp(length - 3, min=0)
+    lex = torch.where((n_ < 8) | (length >= 258), 0,
+                      torch.clamp(_floor_log2(torch.clamp(n_, min=1)) - 2,
+                                  min=0))
+    dex = torch.clamp(_floor_log2(torch.clamp(dist, min=1)) - 2, min=0)
+    return 13 + lex + dex
+
+
+def parse_take(length, dist, block_len, lazy: bool, good_length: int):
+    """Per-position candidate rule: would the sequential parser accept a
+    match here if it arrives? (greedy: len > 3, compress1 deflator.c:2476;
+    lazy: compress2's lookahead with the reference package's cost-aware
+    deferral)."""
+    B = length.shape[0]
+    if not lazy:
+        return length > C.MIN_MATCH
+    ok = (length >= C.MIN_MATCH) & ~((length == C.MIN_MATCH) & (dist > 256))
+    ln = torch.cat([length[:, 1:], length.new_zeros(B, 1)], 1)
+    dn = torch.cat([dist[:, 1:], dist.new_ones(B, 1)], 1)
+    ok_n = (ln >= C.MIN_MATCH) & ~((ln == C.MIN_MATCH) & (dn > 256))
+    defer = ok_n & ((8 + _match_cost_bits(ln, dn)) * length
+                    < _match_cost_bits(length, dist) * (1 + ln))
+    return ok & ((length >= good_length) | ~defer)
+
+
+def walk_inputs(length, take, block_len, bl: int):
+    """The match walk's inputs: cnextp (next accepted candidate at or after
+    p, bl when none) and lenp (max(length, 1)), each (B, bl + padn) int32
+    with padn >= 1 columns of padding (bl and 1), as the reference builds
+    them (lz77.py:463-472). The reference's further padding to whole SMEM
+    chunks has no counterpart here."""
+    B = length.shape[0]
+    dev = length.device
+    pos = torch.arange(bl, dtype=torch.int64, device=dev)[None, :]
+    cand = torch.where(take & (pos < block_len.to(torch.int64)[:, None]),
+                       pos, bl)
+    cnext = torch.flip(torch.cummin(torch.flip(cand, [1]), 1).values, [1])
+    padn = (-(bl + 1)) % 128 + 1
+    i32 = torch.int32
+    cnextp = torch.cat([cnext.to(i32), torch.full((B, padn), bl, dtype=i32,
+                                                  device=dev)], 1)
+    lenp = torch.cat([torch.clamp(length, min=1).to(i32),
+                      torch.ones((B, padn), dtype=i32, device=dev)], 1)
+    return cnextp.contiguous(), lenp.contiguous()
+
+
+def _check_cap(bl: int) -> None:
+    # p has 17 bits in a plist entry; the list holds the worst-case count
+    if bl > 1 << 17 or WALK_CAP < bl // 3 + 128:
+        raise ValueError(f"match walk: block size {bl} exceeds the plist "
+                         "capacity")
+
+
+def match_walk_ref(cnextp, lenp, block_len, bl: int):
+    """Plain version of the match walk (any device, no host reads).
+
+    Pointer doubling on nxt = p + (take ? len : 1) over each block, where
+    take[p] is cnextp[p] == p, gives the sequential parse's orbit; the
+    orbit positions where take holds are the emitted matches, in order,
+    compacted into the plist layout: (B, WALK_CAP) int32, slot 0 = count+1,
+    slots 1..count = p | len << 17, zeros after."""
+    _check_cap(bl)
+    B = cnextp.shape[0]
+    dev = cnextp.device
+    pos = torch.arange(bl, dtype=torch.int64, device=dev)[None, :]
+    cn = cnextp[:, :bl].to(torch.int64)
+    ln = lenp[:, :bl].to(torch.int64)
+    take = cn == pos
+    blen = block_len.to(torch.int64)[:, None]
+    nxt = torch.clamp(pos + torch.where(take, ln, 1), max=bl)
+    nxt = torch.where(pos < blen, nxt, bl)
+    nxt = torch.cat([nxt, torch.full((B, 1), bl, dtype=torch.int64,
+                                     device=dev)], 1)
+    base = (torch.arange(B, dtype=torch.int64, device=dev) * (bl + 1))[:, None]
+    p = orbit_batch((nxt + base).reshape(-1), B, bl)        # (B, bl) local
+    pc = torch.clamp(p, max=bl - 1)
+    hit = (p < bl) & take.gather(1, pc)
+    slot = torch.cumsum(hit.to(torch.int64), 1)             # 1-based
+    val = pc | (ln.gather(1, pc) << 17)
+    plist = torch.zeros((B, WALK_CAP + 1), dtype=torch.int64, device=dev)
+    plist.scatter_(1, torch.where(hit, slot, WALK_CAP), val)
+    plist[:, 0] = slot[:, -1] + 1
+    return plist[:, :WALK_CAP].to(torch.int32)
+
+
+def match_walk(cnextp, lenp, block_len, bl: int):
+    """The match walk: csrc/lz77walk.cu on a CUDA tensor, match_walk_ref on
+    a CPU tensor; same arguments and result. Counts its kernel launches in
+    match_walk.launches."""
+    if cnextp.device.type == "cpu":
+        return match_walk_ref(cnextp, lenp, block_len, bl)
+    from . import _cuda
+    _check_cap(bl)
+    dev = cnextp.device
+    B, n = cnextp.shape
+    if n <= bl:
+        raise ValueError(f"match walk: want > {bl} columns, got {n}")
+    _cuda.check_tensor(cnextp, "cnextp", torch.int32, dev)
+    _cuda.check_tensor(lenp, "lenp", torch.int32, dev, (B, n))
+    _cuda.check_tensor(block_len, "block_len", torch.int32, dev, (B,))
+    fn = _cuda.entry("lz77walk", "jd_match_walk", [ctypes.c_void_p] * 4
+                     + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    plist = torch.zeros((B, WALK_CAP), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        rc = fn(cnextp.data_ptr(), lenp.data_ptr(), block_len.data_ptr(),
+                plist.data_ptr(), B, n, WALK_CAP, _cuda.stream_ptr())
+    _cuda.check(rc, "match walk kernel launch")
+    match_walk.launches += 1
+    return plist
+
+
+match_walk.launches = 0
+
+
+def token_marks_batch(length, take, block_len, bl: int):
+    """Token flags for the whole batch: (is_tok, is_match), each (B, bl).
+
+    is_match marks the match tokens the sequential greedy/lazy cursor would
+    emit; is_tok also marks every literal position not covered by an
+    emitted match. The match walk lists the emitted matches; scattering
+    their starts and ends and a cumsum give the marks."""
+    B = length.shape[0]
+    dev = length.device
+    cnextp, lenp = walk_inputs(length, take, block_len, bl)
+    plist = match_walk(cnextp, lenp, block_len.to(torch.int32).contiguous(),
+                       bl).to(torch.int64)
+    cap = plist.shape[1]
+    slot = torch.arange(cap, dtype=torch.int64, device=dev)[None, :]
+    livem = (slot >= 1) & (slot < plist[:, :1])
+    mp = torch.where(livem, plist & 0x1FFFF, bl)
+    mlen = torch.where(livem, plist >> 17, 0)
+    li = livem.to(torch.int64)
+    ms = torch.zeros((B, bl + 1), dtype=torch.int64, device=dev)
+    ms.scatter_add_(1, torch.clamp(mp, max=bl), li)
+    me = torch.zeros((B, bl + 1), dtype=torch.int64, device=dev)
+    me.scatter_add_(1, torch.clamp(mp + mlen, max=bl), li)
+    ms, me = ms[:, :bl], me[:, :bl]
+    active = torch.cumsum(ms - me, 1)
+    is_match = ms > 0
+    pos = torch.arange(bl, dtype=torch.int64, device=dev)[None, :]
+    live = pos < block_len.to(torch.int64)[:, None]
+    is_tok = (is_match | (active <= 0)) & live
+    return is_tok, is_match & live
+
+
+def parse_batch(length, dist, block_len, bl: int, lazy: bool,
+                good_length: int):
+    """Local greedy/lazy decision -> flat next[] with per-block sentinels.
+
+    Returns (next_flat (B*(bl+1),), take (B, bl)): block b's positions live
+    at [b*(bl+1), b*(bl+1)+bl] with an absorbing sentinel at local index
+    bl."""
+    B = length.shape[0]
+    dev = length.device
+    take = parse_take(length, dist, block_len, lazy, good_length)
+    i = torch.arange(bl, dtype=torch.int64, device=dev)[None, :]
+    nxt = torch.clamp(i + torch.where(take, length, 1), max=bl)
+    nxt = torch.where(i < block_len.to(torch.int64)[:, None], nxt, bl)
+    nxt = torch.cat([nxt, torch.full((B, 1), bl, dtype=torch.int64,
+                                     device=dev)], 1)
+    base = (torch.arange(B, dtype=torch.int64, device=dev) * (bl + 1))[:, None]
+    return (nxt + base).reshape(-1), take
+
+
+def orbit_batch(next_flat, B: int, bl: int):
+    """P[b, m] = next^m(start_b) for every block via flat pointer doubling.
+
+    next_flat: (B*(bl+1),) absolute indices with absorbing per-block
+    sentinels. Returns (B, bl) orbit positions, local to the block (bl is
+    the sentinel)."""
+    dev = next_flat.device
+    base = (torch.arange(B, dtype=torch.int64, device=dev) * (bl + 1))[:, None]
+    p = base
+    j = next_flat.to(torch.int64)
+    while p.shape[1] < bl:
+        p = torch.cat([p, j[p.reshape(-1)].reshape(p.shape)], 1)
+        if p.shape[1] < bl:
+            j = j[j]
+    return p[:, :bl] - base

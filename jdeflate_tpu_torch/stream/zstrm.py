@@ -1,6 +1,9 @@
-"""Framed decompression: the decompress side of the reference's zstrm.
+"""Framed compression and decompression: the reference's zstrm without the
+incremental ZStream object.
 
-Reproduced from jdeflate_tpu/stream/zstrm.py (reference src/zstrm.c):
+Reproduced from jdeflate_tpu/stream/zstrm.py (reference src/zstrm.c): raw,
+zlib and gzip framing of the block-batch encoder (with the FEXTRA index
+subfield, RFC 1952 §2.3.1.1, and the zlib FDICT preset dictionary),
 first-byte format autodetection against an accepted-format mask (parsehead,
 zstrm.c:567-624), gzip multi-member decode (RFC 1952 §2.2) with FEXTRA
 self-indexed members, the zlib FDICT preset-dictionary protocol with adler32
@@ -10,6 +13,7 @@ on the decode device.
 """
 from __future__ import annotations
 
+from ..codec.deflate import RawDeflater
 from ..codec.inflate import RawInflater
 from ..formats import headers as H
 from ..ops import checksum as cs
@@ -18,6 +22,66 @@ from . import native
 from ..utils import errors
 
 _FORMATS = ("raw", "zlib", "gzip")
+
+
+def compress(data: bytes, format: str = "gzip", level: int = 6,
+             dictionary: bytes | None = None, block_size: int = 1 << 16,
+             batch: int = 16, fixed_codes: bool = False,
+             embed_index: bool = False, device="cuda") -> bytes:
+    """One-shot framed compression on `device`. Returns the framed stream.
+
+    embed_index=True (gzip only) stores the parallel-decode index in a
+    FEXTRA subfield so decompress() takes the windowed device path with no
+    index handed over; foreign decoders skip the field. It costs about 18%
+    of the compressed size (one 6-bit anchor per 32 stream bits), so it is
+    opt-in: the index from compress_with_index() is free.
+    """
+    if format not in _FORMATS:
+        raise errors.IncorrectUseError(f"unknown format {format!r}")
+    if format == "gzip" and dictionary:
+        raise errors.IncorrectUseError("gzip framing has no dictionary field")
+    enc = RawDeflater(level=level, block_size=block_size, batch=batch,
+                      fixed_codes=fixed_codes, device=device)
+    dev = enc.device
+    raw, index = enc.compress(data, dictionary=dictionary)
+    if format == "raw":
+        return raw
+    if format == "gzip":
+        if embed_index:
+            index["clen"] = len(raw)
+            hdr = H.emit_gzip_header_with_extra(H.pack_index(index))
+        else:
+            hdr = H.emit_gzip_header()
+        return (hdr + raw + H.emit_gzip_trailer(cs.crc32(data, device=dev),
+                                                len(data)))
+    dictid = cs.adler32(dictionary, device=dev) if dictionary else None
+    return (H.emit_zlib_header(level, dictid) + raw
+            + H.emit_zlib_trailer(cs.adler32(data, device=dev)))
+
+
+def compress_with_index(data: bytes, format: str = "gzip", level: int = 6,
+                        dictionary: bytes | None = None,
+                        block_size: int = 1 << 16, batch: int = 16,
+                        device="cuda"):
+    """Like compress() but also returns the parallel-decode index and the
+    header length: (stream, index, header_len)."""
+    if format not in _FORMATS:
+        raise errors.IncorrectUseError(f"unknown format {format!r}")
+    enc = RawDeflater(level=level, block_size=block_size, batch=batch,
+                      device=device)
+    dev = enc.device
+    raw, index = enc.compress(data, dictionary=dictionary)
+    if format == "raw":
+        return raw, index, 0
+    if format == "gzip":
+        hdr = H.emit_gzip_header()
+        out = hdr + raw + H.emit_gzip_trailer(cs.crc32(data, device=dev),
+                                              len(data))
+    else:
+        dictid = cs.adler32(dictionary, device=dev) if dictionary else None
+        hdr = H.emit_zlib_header(level, dictid)
+        out = hdr + raw + H.emit_zlib_trailer(cs.adler32(data, device=dev))
+    return out, index, len(hdr)
 
 
 def _seq_inflate(body: bytes, dictionary: bytes = b""):
@@ -37,8 +101,8 @@ def decompress(data: bytes, format: str = "auto",
 
     format: 'auto' accepts any of raw/zlib/gzip by first-byte detection, or
     one of the three. index/header_len: optional parallel-decode index (bit
-    offsets relative to the raw deflate body) as returned by the JAX
-    package's compress_with_index or RawInflater.build_index. gzip inputs
+    offsets relative to the raw deflate body) as returned by
+    compress_with_index (of either package) or RawInflater.build_index. gzip inputs
     may hold several members; all are decoded and concatenated, each trailer
     verified. Without an index, a gzip member decodes sequentially on the
     host unless its header carries an embedded (FEXTRA) index.
