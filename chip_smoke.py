@@ -4,22 +4,32 @@ Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
-It builds the CUDA kernels from jdeflate_tpu_torch/csrc, then drives the
-port's two paths on a 32 MiB Silesia-like corpus. Decode: the corpus
-compressed by zlib at level 6, indexed by RawInflater.build_index and
-decoded on the GPU through the window-walk and token-expansion kernels, raw
-and gzip-framed; a tampered window anchor must err and fall back to the
-native decoder. Encode: compress_with_index at level 6 with 64 KiB blocks in
-batches of 16 (the bench's round trip) through the match-walk kernel; the
-gzip stream must inflate in zlib and in the port's decoder with every
-windowed batch at err 0, and a FEXTRA self-indexed member (of the first
-MiB: the field holds at most 64 KiB of index) must decode with no index
-handed over. Each kernel is held against its plain PyTorch version
-on the main path's inputs, the encoder's integer stages on the card against
-the same stages on the CPU, and everything is timed. Any failure exits
-non-zero. The last line is {"ok": true, "device": {...}}; the line with
-{"kernels": [...]} before it lists every kernel with its launches, error
-against the plain version, time, bound and the plain version's time.
+It builds the six CUDA kernels from jdeflate_tpu_torch/csrc (all nvcc
+processes at once), then drives the port's paths on a 32 MiB Silesia-like
+corpus. Decode: the corpus compressed by zlib at level 6, indexed by
+RawInflater.build_index and decoded on the GPU through the window-walk and
+token-expansion kernels, raw and gzip-framed (a batch may err only where
+its last pseudo-entry's word segment clamps, ROADMAP C5); a tampered window
+anchor must err and fall back to the native decoder. Encode:
+compress_with_index at level 6 with 64 KiB blocks in batches of 16 (the
+bench's round trip) through the match-walk kernel; the gzip stream must
+inflate in zlib and in the port's decoder with every windowed batch at err
+0, and a FEXTRA self-indexed member (of the first MiB: the field holds at
+most 64 KiB of index) must decode with no index handed over. v5 decode: the
+same 32 MiB decode with JDT_EXPAND=5, through the seed and resolve kernels;
+its errs must be the walk's plus the reference's seed-window and spill
+limits (ROADMAP C3). Anchored decode: the first 8 MiB encoded by the port at
+level 6, re-indexed with symbol anchors taken from the symbol lattice the
+port computes on the card, through the v1 match-expansion kernel, every
+batch at err 0. Dense decode: the first 8 MiB compressed by zlib, indexed
+with block offsets only (its segmented orbits err in both packages,
+ROADMAP C8), and a 1 MiB dense decode held against the CPU. Each kernel is
+held against its plain PyTorch version on the main path's inputs, the
+encoder's integer stages on the card against the same stages on the CPU,
+and everything is timed. Any failure exits non-zero. The last line is
+{"ok": true, "device": {...}}; the line with {"kernels": [...]} before it
+lists every kernel with its launches, error against the plain version,
+time, bound, the plain version's time and the library call's time.
 
 Without a CUDA device it exits non-zero and prints no result.
 """
@@ -35,6 +45,8 @@ import zlib
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 CORPUS_MB = 32
+ANCH_MB = 8                   # anchored and dense decode: the first 8 MiB
+DENSE_MB = 8
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate (data sheet)
 BATCH = dict(max_batch_bits=1 << 25, max_batch_blocks=256,
              max_batch_out=1 << 23)
@@ -306,6 +318,430 @@ def encode_phase(data: bytes, zlib6_len: int, card: str) -> dict:
             "library_ms": None}
 
 
+def _mean(xs):
+    return statistics.mean(xs) if xs else None
+
+
+def batch_offsets(dec, raw: bytes, index: dict, kind: str) -> list:
+    """(output offset, output length) of each planned batch of `kind`, in
+    plan order: stored batches are host copies, the others end at their
+    blocks' total output."""
+    from jdeflate_tpu_torch.codec import inflate as I
+    W_pad = I._bucket((len(raw) >> 2) + 18, 1 << 13)
+    work, _ = dec._plan(raw, index, b"", W_pad)
+    res, pos = [], 0
+    for k, item in work:
+        n = len(item) if k == "stored" else (item[5] if k == "win"
+                                             else item[12])
+        if k == kind:
+            res.append((pos, n))
+        pos += n
+    return res
+
+
+def card_share(stats: list, n: int) -> str:
+    """Who produced the n output bytes of one decompress, from its
+    last_stats: device batches up to the first that errs, host copies of
+    stored blocks, and the native decoder from the erring batch on."""
+    card = host = 0
+    for k, p, e in stats:
+        if e:
+            break
+        if k == "stored":
+            host += p
+        else:
+            card += p
+    return (f"the card produced {card} B ({100 * card / n:.1f}%), stored "
+            f"copies {host} B, the native decoder {n - card - host} B")
+
+
+def v5_phase(dec, raw: bytes, data: bytes, idx: dict, e2_errs: list,
+             card: str) -> list:
+    """Phase 8: the v5 expansion engine (JDT_EXPAND=5) on the 32 MiB
+    decode. Returns the seed and resolve kernels' entries of the kernels
+    line."""
+    import torch
+    from jdeflate_tpu_torch.codec import inflate as I
+    from jdeflate_tpu_torch.ops import expand5 as ex5
+    from jdeflate_tpu_torch.ops import walk as wk
+
+    nwin = len(e2_errs)
+    os.environ["JDT_EXPAND"] = "5"
+    try:
+        # ---- 8a. main path: one decompress, counts zeroed just before
+        dec.capture_calls = True
+        ex5.seed_scatter.launches = 0
+        ex5.resolve.launches = 0
+        t0 = time.perf_counter()
+        out = dec.decompress(raw, index=idx)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        launches = {"seed": ex5.seed_scatter.launches,
+                    "resolve": ex5.resolve.launches}
+        stats, calls = list(dec.last_stats), list(dec.last_calls)
+        dec.capture_calls = False
+        if out != data:
+            fail("v5 decode differs from the corpus")
+        if launches != {"seed": nwin, "resolve": nwin}:
+            fail(f"v5 launches {launches} != {nwin} windowed batches")
+        if any(k not in ("win", "stored") for k, _, _ in stats):
+            fail(f"v5 decode: unexpected batch kinds {stats}")
+
+        # ---- 8b. why batches err: the reference's two limits (ROADMAP C3),
+        # recomputed per batch from the walk's tokens, on top of the walk's
+        # own checks (engine 2's err of the same batch)
+        per = []
+        for words, metas, row, halo, npe, nb, oc, ww in calls:
+            args = I._walk_inputs(words, metas[row], npe, nb, ww)[0]
+            tok, outlen = wk.walk_cuda(*args)[:2]
+            off, seed = ex5.slot_attrs16(tok, outlen)
+            werr = int(ex5.seed_window_err(off, seed, oc))
+            serr = int(ex5.spill_pass(tok, outlen, torch.zeros(
+                oc, dtype=torch.int32, device="cuda"), oc)[1])
+            per.append((tok, outlen, halo, oc, off, seed, werr, serr))
+        logged = [e for k, _, e in stats if k == "win"]
+        want = [e2 + p[6] + p[7] for e2, p in zip(e2_errs, per)]
+        if logged != want[:len(logged)]:
+            fail(f"v5 errs {logged} != walk + seed window + spill "
+                 f"{want[:len(logged)]}")
+        nwerr = sum(1 for p in per if p[6])
+        nserr = sum(1 for p in per if p[7])
+        first_bad = next((i for i, e in enumerate(logged) if e), None)
+        if first_bad != next((i for i, e in enumerate(want) if e), None):
+            fail("v5: the logged errs disagree with the recomputed limits")
+        native = ("none: every windowed batch decoded on the card"
+                  if first_bad is None else
+                  f"from windowed batch {first_bad} on (its err "
+                  f"{logged[first_bad]}), the native decoder")
+        print(f"v5 main path: {nwin} win batches, launches {launches}; "
+              f"first call {first_s:.2f} s; batches over the reference's "
+              f"seed window {nwerr} (regions "
+              f"{[p[6] for p in per if p[6]]}), over SPILL_K {nserr}; "
+              f"native re-decode {native}", flush=True)
+
+        # ---- 8c. each kernel against its plain version on 2 batches
+        seed_err = res_err = 0
+        plans = []
+        for tok, outlen, halo, oc, off, seed, _, _ in per:
+            S16 = ex5.seed_scatter(off, seed, oc)
+            S16f, _ = ex5.spill_pass(tok, outlen, S16, oc)
+            plans.append(ex5.propagate(ex5.seed16_to_plan(S16f)).contiguous())
+        for (tok, outlen, halo, oc, off, seed, _, _), P in zip(per[:2],
+                                                               plans):
+            seed_err = max(seed_err, max_abs_err(
+                [ex5.seed_scatter(off, seed, oc)],
+                [ex5.seed_scatter_ref(off, seed, oc)]))
+            res_err = max(res_err, max_abs_err(
+                [ex5.resolve(P, halo, oc)[0]],
+                [ex5.resolve_ref(P, halo, oc)]))
+        if seed_err or res_err:
+            fail(f"v5 kernels differ from plain versions: seed {seed_err}, "
+                 f"resolve {res_err}")
+        print("v5 seed and resolve kernels equal their plain versions on 2 "
+              "batches (max abs err 0)", flush=True)
+
+        # ---- 8c'. every batch's card output against the corpus slice it
+        # covers: the decode above is native from the first erring batch,
+        # so this is where the kernels' bytes meet the corpus. Each batch
+        # resolves behind the corpus's own 32 KiB before it. Skipped: a
+        # batch whose walk errs (C5), whose tokens are wrong, and one over
+        # SPILL_K, whose extra seeds the reference drops.
+        offs = batch_offsets(dec, raw, idx, "win")
+        checked = skipped = 0
+        for k, ((tok, outlen, _, oc, _, _, _, serr), P, (o0, n_out)) in \
+                enumerate(zip(per, plans, offs)):
+            if e2_errs[k] or serr:
+                skipped += 1
+                continue
+            produced = int(outlen.sum())
+            h = data[max(o0 - I.HALO, 0):o0]
+            halo = torch.zeros(I.HALO, dtype=torch.uint8, device="cuda")
+            if h:
+                halo[I.HALO - len(h):] = torch.frombuffer(
+                    bytearray(h), dtype=torch.uint8).cuda()
+            got = ex5.resolve(P, halo, oc)[0][:produced].cpu().numpy()
+            if produced != n_out or got.tobytes() != data[o0:o0 + n_out]:
+                fail(f"v5 windowed batch {k}: the card's {produced} B differ "
+                     f"from the corpus's {n_out} B at offset {o0}")
+            checked += 1
+        if checked + skipped != nwin or checked == 0:
+            fail(f"v5: {checked} batches held to the corpus of {nwin}")
+        print(f"v5 card output equals the corpus on {checked} of {nwin} "
+              f"windowed batches ({skipped} skipped: walk err C5 or spill "
+              "over SPILL_K)", flush=True)
+
+        # ---- 8d. times
+        sd_ms, sd_plain, sd_lib, sd_bound = [], [], [], []
+        rs_ms, rs_plain, rs_bound = [], [], []
+        for k, ((tok, outlen, halo, oc, off, seed, _, _), P) in enumerate(
+                zip(per, plans)):
+            n = off.numel()
+            sd_ms.append(gpu_ms(lambda: ex5.seed_scatter(off, seed, oc)))
+            sd_plain.append(gpu_ms(
+                lambda: ex5.seed_scatter_ref(off, seed, oc), 1))
+            lidx = torch.where((seed != 0) & (off < oc), off,
+                               torch.full_like(off, oc)).long()
+            sd_lib.append(gpu_ms(lambda: torch.zeros(
+                oc + 1, dtype=torch.int32, device="cuda").scatter_reduce_(
+                0, lidx, seed, "amax")[:oc]))
+            # least bytes: each slot's offset and seed read once, each seed
+            # placed written once
+            placed = int(((seed != 0) & (off >= 0) & (off < oc)).sum())
+            sd_bound.append((8 * n + 4 * placed) / HBM_BYTES_PER_S * 1e3)
+            rs_ms.append(gpu_ms(lambda: ex5.resolve(P, halo, oc), 1))
+            if k < 4:
+                rs_plain.append(gpu_ms(lambda: ex5.resolve_ref(P, halo, oc),
+                                       1))
+            # the plan of the bytes produced read once, the halo read once,
+            # the bytes produced written once
+            produced = int(outlen.sum())
+            rs_bound.append((4 * produced + I.HALO + produced)
+                            / HBM_BYTES_PER_S * 1e3)
+        print(f"expand5_seed ({card}): {_mean(sd_ms):.4f} ms/launch x "
+              f"{launches['seed']}; plain {_mean(sd_plain):.4f} ms; "
+              f"scatter_reduce_ {_mean(sd_lib):.4f} ms; bound "
+              f"{_mean(sd_bound):.5f} ms", flush=True)
+        print(f"expand5_resolve ({card}): {_mean(rs_ms):.3f} ms/launch x "
+              f"{launches['resolve']} (range {min(rs_ms):.3f}-"
+              f"{max(rs_ms):.3f}); plain {_mean(rs_plain):.3f} ms (first "
+              f"{len(rs_plain)} batches); bound {_mean(rs_bound):.5f} ms",
+              flush=True)
+        wall, span, walls = timed_runs(
+            lambda: dec.decompress(raw, index=idx),
+            lambda o: o == data or fail("timed v5 decode differs"))
+        print(f"v5 decode ({card}): wall {wall * 1e3:.1f} ms = "
+              f"{len(data) / wall / 1e9:.4f} GB/s; device span "
+              f"{span * 1e3:.1f} ms; runs "
+              f"{[round(w * 1e3, 1) for w in walls]} ms; of the output, "
+              f"{card_share(dec.last_stats, len(data))}", flush=True)
+        profile_run("v5 decode", lambda: dec.decompress(raw, index=idx),
+                    span)
+    finally:
+        os.environ.pop("JDT_EXPAND", None)
+    return [
+        {"name": "expand5_seed", "route": "cuda",
+         "source": "jdeflate_tpu_torch/csrc/expand5seed.cu",
+         "replaces": "jdeflate_tpu/ops/expand5.py:185",
+         "launches": launches["seed"], "max_abs_err": seed_err,
+         "ms": _mean(sd_ms), "plain_ms": _mean(sd_plain),
+         "bound_ms": _mean(sd_bound), "bound_by": "bytes",
+         "library_ms": _mean(sd_lib)},
+        {"name": "expand5_resolve", "route": "cuda",
+         "source": "jdeflate_tpu_torch/csrc/expand5resolve.cu",
+         "replaces": "jdeflate_tpu/ops/expand5.py:358",
+         "launches": launches["resolve"], "max_abs_err": res_err,
+         "ms": _mean(rs_ms), "plain_ms": _mean(rs_plain),
+         "bound_ms": _mean(rs_bound), "bound_by": "bytes",
+         "library_ms": None},
+    ]
+
+
+def symbol_anchors(raw: bytes, index: dict, dev: str) -> list:
+    """Every 64th symbol's bit offset (ordinals 64, 128, ...) of each Huffman
+    block, from the symbol lattice that the port's wavefront_decode and
+    orbits compute over the whole stream on `dev`."""
+    import numpy as np
+    import torch
+    from jdeflate_tpu_torch.ops import decode as dk
+    from jdeflate_tpu_torch.stream import host_inflate as hi
+    from jdeflate_tpu_torch.stream import native
+    bits = list(index["block_bits"])
+    recs = (native.parse_block_headers(raw, bits) if native.available()
+            else [hi.parse_block_header(raw, b) for b in bits])
+    nb = len(bits)
+    nbits = len(raw) * 8
+    w = np.zeros(len(raw) // 4 + 4, np.uint32)
+    w.view(np.uint8)[:len(raw)] = np.frombuffer(raw, np.uint8)
+    ll = np.zeros((nb, 288), np.int32)
+    dl = np.zeros((nb, 32), np.int32)
+    for k, r in enumerate(recs):
+        if r.btype:
+            ll[k, :len(r.litlen_lengths)] = r.litlen_lengths
+            dl[k, :len(r.dist_lengths)] = r.dist_lengths
+    ltab = dk.build_tables_batch(torch.from_numpy(ll).to(dev),
+                                 *dk.litlen_attrs())
+    dtab = dk.build_tables_batch(torch.from_numpy(dl).to(dev),
+                                 *dk.dist_attrs())
+    p = torch.arange(nbits, device=dev)
+    bid = torch.searchsorted(torch.tensor(bits, device=dev), p,
+                             right=True) - 1
+    f = dk.wavefront_decode(torch.from_numpy(w.astype(np.int64)).to(dev), 0,
+                            nbits, bid.clamp(0, nb - 1), ltab, dtab)[0]
+    huff = [k for k in range(nb) if recs[k].btype]
+    bb = list(index["block_bytes"]) + [index["n"]]
+    P = dk.orbits(f, torch.tensor([recs[k].sym_bit_offset for k in huff],
+                                  device=dev),
+                  max(bb[k + 1] - bb[k] for k in huff) + 2).cpu().numpy()
+    anchors = [None] * nb
+    for row, k in zip(P, huff):
+        a = row[dk.ANCHOR_STRIDE::dk.ANCHOR_STRIDE]
+        anchors[k] = a[a < nbits]
+    return anchors
+
+
+def anchored_phase(data: bytes, card: str) -> dict:
+    """Phase 9: the anchored decode with the v1 match expansion, on the
+    level-6 stream of the port's own encoder re-indexed with symbol
+    anchors. Returns the expand1 kernel's entry of the kernels line."""
+    import torch
+    from jdeflate_tpu_torch.codec import deflate as D
+    from jdeflate_tpu_torch.codec import inflate as I
+    from jdeflate_tpu_torch.ops import expand as ex
+
+    part = data[:ANCH_MB << 20]
+    raw, _ = D.RawDeflater(level=6, block_size=1 << 16, batch=16,
+                           device="cuda").compress(part)
+    dec = I.RawInflater(device="cuda", **BATCH)
+    idx = dec.build_index(raw)
+    t0 = time.perf_counter()
+    anchors = symbol_anchors(raw, idx, "cuda")
+    anchor_s = time.perf_counter() - t0
+    index = {**{k: v for k, v in idx.items() if k != "win"},
+             "anchors": anchors}
+    bb = list(idx["block_bytes"]) + [idx["n"]]
+    maxout = max(bb[k + 1] - bb[k] for k in range(len(anchors))
+                 if anchors[k] is not None)
+
+    # ---- 9a. main path
+    dec.capture_calls = True
+    ex.expand_matches.launches = 0
+    out = dec.decompress(raw, index=index)
+    torch.cuda.synchronize()
+    launches = ex.expand_matches.launches
+    stats, inputs = list(dec.last_stats), list(dec.last_calls)
+    dec.capture_calls = False
+    if out != part:
+        fail("anchored decode differs from the corpus")
+    kinds = [k for k, _, _ in stats]
+    nanch = kinds.count("anchored")
+    if set(kinds) - {"anchored", "stored"} or any(e for _, _, e in stats):
+        fail(f"anchored decode: kinds {set(kinds)}, errs "
+             f"{[e for _, _, e in stats if e]}")
+    if nanch == 0 or launches != nanch or len(inputs) != nanch:
+        fail(f"expand1 launches {launches}, captured {len(inputs)} != "
+             f"{nanch} anchored batches")
+    print(f"anchored main path: {len(part)} B encoded at level 6 by the "
+          f"port -> {len(raw)} B, {len(idx['block_bits'])} blocks re-indexed "
+          f"by build_index (largest Huffman block {maxout} B), "
+          f"{sum(len(a) for a in anchors if a is not None)} symbol anchors "
+          f"from the card's lattice in {anchor_s:.2f} s; {nanch} anchored + "
+          f"{kinds.count('stored')} stored batches at err 0, expand1 "
+          f"launches {launches}", flush=True)
+
+    # ---- 9b. the kernel against its plain version, and its times, on the
+    # inputs the main path gave it
+    err = 0
+    for buf, mats, _ in inputs[:2]:
+        err = max(err, max_abs_err([ex.expand_matches(buf.clone(), *mats)],
+                                   [ex.expand_matches_ref(buf, *mats)]))
+    if err:
+        fail(f"expand1 differs from its plain version: {err}")
+    print(f"expand1 equals its plain version on {min(2, len(inputs))} "
+          "batches (max abs err 0)", flush=True)
+    ms, plain, bound, nmat = [], [], [], []
+    for buf, mats, produced in inputs:
+        done = ex.expand_matches(buf.clone(), *mats)  # expanding is idempotent
+        ms.append(gpu_ms(lambda: ex.expand_matches(done, *mats)))
+        plain.append(gpu_ms(lambda: ex.expand_matches_ref(buf, *mats), 1))
+        nm = int(mats[3][:, 1].max())
+        nmat.append(nm)
+        # least bytes: the halo and the bytes produced read once, the bytes
+        # produced written once, each match's three words and each block's
+        # range read once
+        bound.append((I.HALO + 2 * int(produced) + 12 * nm
+                      + 16 * mats[3].shape[0]) / HBM_BYTES_PER_S * 1e3)
+    print(f"expand1 ({card}): {_mean(ms):.3f} ms/launch x {launches} "
+          f"(per batch {[round(x, 3) for x in ms]}); plain "
+          f"{_mean(plain):.3f} ms; bound {_mean(bound):.5f} ms; "
+          f"{sum(nmat)} matches, {sum(ms) * 1e6 / max(sum(nmat), 1):.1f} "
+          "ns/match", flush=True)
+    wall, span, walls = timed_runs(
+        lambda: dec.decompress(raw, index=index),
+        lambda o: o == part or fail("timed anchored decode differs"))
+    print(f"anchored decode ({card}): wall {wall * 1e3:.1f} ms = "
+          f"{len(part) / wall / 1e9:.4f} GB/s; device span "
+          f"{span * 1e3:.1f} ms; runs {[round(w * 1e3, 1) for w in walls]} "
+          f"ms; of the output, {card_share(dec.last_stats, len(part))}",
+          flush=True)
+    profile_run("anchored decode", lambda: dec.decompress(raw, index=index),
+                span)
+    return {"name": "expand1", "route": "cuda",
+            "source": "jdeflate_tpu_torch/csrc/expand1.cu",
+            "replaces": "jdeflate_tpu/ops/expand.py:43",
+            "launches": launches, "max_abs_err": err,
+            "ms": _mean(ms), "plain_ms": _mean(plain),
+            "bound_ms": _mean(bound), "bound_by": "bytes",
+            "library_ms": None}
+
+
+def dense_phase(data: bytes, card: str) -> None:
+    """Phase 10: the dense decode (an index with block offsets only) of a
+    zlib level-6 stream; its stages are plain PyTorch, so the first batch of
+    a 1 MiB stream is also held against the same stages on the CPU."""
+    import torch
+    from jdeflate_tpu_torch.codec import inflate as I
+
+    def zraw(b):
+        co = zlib.compressobj(6, zlib.DEFLATED, -15)
+        return co.compress(b) + co.flush()
+
+    part = data[:DENSE_MB << 20]
+    raw = zraw(part)
+    dec = I.RawInflater(device="cuda", **BATCH)
+    idx = dec.build_index(raw)
+    index = {k: v for k, v in idx.items() if k != "win"}
+    planned = len(batch_offsets(dec, raw, index, "dense"))
+    out = dec.decompress(raw, index=index)
+    torch.cuda.synchronize()
+    stats = list(dec.last_stats)
+    if out != part:
+        fail("dense decode differs from the corpus")
+    kinds = [k for k, _, _ in stats]
+    if set(kinds) - {"dense", "stored"} or "dense" not in kinds:
+        fail(f"dense decode: unexpected batch kinds {set(kinds)}")
+    errs = [e for k, _, e in stats if k == "dense"]
+    first_bad = next((i for i, e in enumerate(errs) if e), None)
+    print(f"dense main path: {len(part)} B -> {len(raw)} B zlib-6, "
+          f"{planned} dense batches planned and run on the card; logged "
+          f"{len(errs)} with errs {errs}; native re-decode "
+          + ("none" if first_bad is None else
+             f"from dense batch {first_bad} on (segmented orbits unconverged "
+             "after the reference's 3 stitch passes, ROADMAP C8)"),
+          flush=True)
+
+    # card against CPU on the first batch of a 1 MiB stream
+    small = part[:1 << 20]
+    sraw = zraw(small)
+    sidx = {k: v for k, v in dec.build_index(sraw).items() if k != "win"}
+    res = []
+    for dev in ("cuda", "cpu"):
+        d2 = I.RawInflater(device=dev, max_batch_bits=1 << 22)
+        o = d2.decompress(sraw, index=sidx)
+        res.append((o, [(k, int(p), int(e)) for k, p, e in d2.last_stats]))
+    if res[0] != res[1] or res[0][0] != small:
+        fail(f"dense decode on the card differs from the CPU: "
+             f"{res[0][1]} vs {res[1][1]}")
+    print(f"dense decode of 1 MiB: card and CPU give equal bytes and "
+          f"last_stats {res[0][1]}", flush=True)
+    wall, span, walls = timed_runs(
+        lambda: dec.decompress(raw, index=index),
+        lambda o: o == part or fail("timed dense decode differs"))
+    print(f"dense decode ({card}): wall {wall * 1e3:.1f} ms = "
+          f"{len(part) / wall / 1e9:.4f} GB/s; device span "
+          f"{span * 1e3:.1f} ms; runs {[round(w * 1e3, 1) for w in walls]} "
+          f"ms; of the output, {card_share(dec.last_stats, len(part))}",
+          flush=True)
+
+
+def clamps_segment(call) -> bool:
+    """Whether a captured windowed batch's last pseudo-entry reads past its
+    word window, so its segment start clamps (ROADMAP C5)."""
+    from jdeflate_tpu_torch.ops import walk as wk
+    _, metas, row, _, npe, _, _, ww = call
+    pe_word0 = metas[row][2:2 + npe].clamp(min=0)
+    return bool((pe_word0 > ww - (wk.PE_LANES + 8)).any())
+
+
 def max_abs_err(got, want) -> int:
     import torch
     err = 0
@@ -338,7 +774,8 @@ def main() -> None:
     print(f"python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda}", flush=True)
     t0 = time.perf_counter()
-    built = _cuda.build(["walk", "expand", "lz77walk"])
+    built = _cuda.build(["walk", "expand", "lz77walk", "expand5seed",
+                         "expand5resolve", "expand1"])
     build_s = time.perf_counter() - t0
     for name, (secs, log) in built.items():
         regs = [ln.strip() for ln in log.splitlines() if "registers" in ln]
@@ -378,14 +815,25 @@ def main() -> None:
     kinds = [k for k, _, _ in stats]
     if any(k not in ("win", "stored") for k in kinds):
         fail(f"unexpected batch kinds {set(kinds)}")
-    if any(e != 0 for _, _, e in stats):
+    # a batch may err only where its last pseudo-entry's word segment clamps
+    # into the batch's word window (ROADMAP C5, as in the reference); the
+    # decode then goes native from that batch on
+    clamped = [clamps_segment(c) for c in calls]
+    errs = [e for k, _, e in stats if k == "win"]
+    if any(e and not clamped[i] for i, e in enumerate(errs)):
         fail(f"a batch erred on the main path: {stats}")
-    nwin = kinds.count("win")
+    nwin = len(calls)
     if nwin == 0 or launches != {"walk": nwin, "expand2": nwin}:
         fail(f"launches {launches} != {nwin} windowed batches")
+    c5 = [(i, e) for i, e in enumerate(errs) if e]
     print(f"main path: index {index_s:.2f} s, {len(idx['block_bits'])} "
-          f"blocks, {nwin} win + {kinds.count('stored')} stored batches, "
-          f"launches {launches}", flush=True)
+          f"blocks, {nwin} win + {kinds.count('stored')} stored batches "
+          f"logged, launches {launches}; batches whose last pseudo-entry "
+          f"clamps (C5) {sum(clamped)}, erring "
+          + (f"{c5}: native re-decode from windowed batch {c5[0][0]} on "
+             f"({len(data) - sum(p for _, p, _ in stats[:-1])} B)"
+             if c5 else "none"), flush=True)
+    print(f"decode output: {card_share(stats, len(data))}", flush=True)
     outg = zstrm.decompress(gz, index=idx, header_len=hl, device="cuda")
     if outg != data:
         fail("gzip decode differs from the corpus")
@@ -393,8 +841,8 @@ def main() -> None:
 
     # ---- 4. each kernel against its plain version, on the card
     per = []
-    for words, metas, row, halo, npe, nb, oc in calls:
-        args = I._walk_inputs(words, metas[row], npe, nb)[0]
+    for words, metas, row, halo, npe, nb, oc, ww in calls:
+        args = I._walk_inputs(words, metas[row], npe, nb, ww)[0]
         per.append((args, halo, oc))
     walk_err = exp_err = 0
     for args, halo, oc in per[:2]:
@@ -461,20 +909,26 @@ def main() -> None:
     print(f"decode ({card}): wall {wall * 1e3:.1f} ms = "
           f"{len(data) / wall / 1e9:.4f} GB/s; device span "
           f"{span * 1e3:.1f} ms = {len(data) / span / 1e9:.4f} GB/s; "
-          f"runs {[round(w * 1e3, 1) for w in walls]} ms", flush=True)
+          f"runs {[round(w * 1e3, 1) for w in walls]} ms; of the output, "
+          f"{card_share(dec.last_stats, len(data))}", flush=True)
     print(f"walk ({card}): {statistics.mean(walk_ms):.3f} ms/launch x "
           f"{launches['walk']} (per batch {[round(x, 3) for x in walk_ms]}); "
           f"plain {statistics.mean(walk_plain):.3f} ms; bound "
           f"{statistics.mean(walk_bound):.4f} ms; "
           f"{statistics.mean(lanes):.0f} lanes/launch", flush=True)
     print(f"expand2 ({card}): {statistics.mean(exp_ms):.3f} ms/launch x "
-          f"{launches['expand2']} (per batch {[round(x, 3) for x in exp_ms]}); "
+          f"{launches['expand2']} (per batch "
+          f"{[round(x, 3) for x in exp_ms]}); "
           f"plain {statistics.mean(exp_plain):.3f} ms; bound "
           f"{statistics.mean(exp_bound):.4f} ms; {ntok} tokens, "
           f"{sum(exp_ms) * 1e6 / ntok:.1f} ns/token", flush=True)
     profile_run("decode", lambda: dec.decompress(raw, index=idx), span)
 
     enc_kernel = encode_phase(data, len(raw), card)
+    v5_kernels = v5_phase(dec, raw, data, idx,
+                          errs + [0] * (nwin - len(errs)), card)
+    anch_kernel = anchored_phase(data, card)
+    dense_phase(data, card)
 
     kernels = [
         {"name": "walk", "route": "cuda",
@@ -494,6 +948,8 @@ def main() -> None:
          "bound_ms": statistics.mean(exp_bound), "bound_by": "bytes",
          "library_ms": None},
         enc_kernel,
+        *v5_kernels,
+        anch_kernel,
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -9,7 +9,11 @@ its parallel-decode index; the same bytes and index as the JAX package.
 Decode path: an index of block offsets and 32-bit window anchors (from the
 encoder, from a FEXTRA header, or from RawInflater.build_index) lets every
 batch of Huffman blocks decode on the GPU in two kernels, the window walk
-(csrc/walk.cu) and the token expansion (csrc/expand.cu). Entry points take
+(csrc/walk.cu) and the token expansion (csrc/expand.cu, or with
+JDT_EXPAND=5 the v5 engine's csrc/expand5seed.cu and csrc/expand5resolve.cu).
+An index with symbol anchors decodes by exact anchored walks and the v1
+match expansion (csrc/expand1.cu); one with block offsets only, by a
+speculative decode at every bit position. Entry points take
 ``device`` (default "cuda"); ``device="cpu"`` runs the plain PyTorch
 versions. The package imports neither jax nor jdeflate_tpu.
 

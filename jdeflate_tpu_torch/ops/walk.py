@@ -264,17 +264,17 @@ def walk_ref(seg0, seg1, seg2, start_rel, t1, t2a, t2b, t2c):
             eobf)
 
 
-def segment_starts(pe_word0, word_lo):
+def segment_starts(pe_word0, word_lo, wwords: int):
     """Absolute first stream word of each pseudo-entry's lanes.
 
-    The reference slices a (PE_LANES + 8)-word segment per
-    pseudo-entry out of the batch's bucketed word window, and a dynamic
-    slice clamps its start into that window: the last pseudo-entry of a
-    batch whose lanes reach past the window then reads shifted words, fails
-    the exit-chain check and falls back to the native decoder (ROADMAP C5).
-    The walk here reads its words straight from the whole stream, so no
-    start is clamped."""
-    return word_lo + torch.clamp(pe_word0, min=0)
+    The reference slices a (PE_LANES + 8)-word segment per pseudo-entry out
+    of the batch's bucketed word window [word_lo, word_lo + wwords) with a
+    dynamic slice, which clamps the start into that window. The same clamp
+    here: the last pseudo-entry of a batch whose lanes reach past the window
+    then reads shifted words, fails the exit-chain check and falls back to
+    the native decoder, as in the reference."""
+    return word_lo + torch.clamp(torch.clamp(pe_word0, min=0), 0,
+                                 wwords - (PE_LANES + 8))
 
 
 def walk_windows_ref(words, seg_word0, pe_tab, start_rel, t1, t2a, t2b, t2c):

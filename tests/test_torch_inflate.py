@@ -1,8 +1,9 @@
-"""Parity of the port's decode path (jdeflate_tpu_torch.codec.inflate,
-ops.expand2, ops.decode) with the JAX package on the CPU: the plain token
-expansion against _assemble_output, and RawInflater.build_index/decompress
-on zlib streams, on streams with the JAX encoder's index, and on a stream
-whose index has a tampered anchor. Tolerance: exact equality of bytes,
+"""Parity of the port's windowed decode path (codec.inflate, ops.expand2,
+ops.decode of jdeflate_tpu_torch) with the JAX package on the CPU: the plain
+token expansion against _assemble_output, and RawInflater.build_index and
+decompress on zlib streams, on streams with the JAX encoder's index, on a
+stream whose index has a tampered anchor, on the segment clamp of ROADMAP
+C5, and with the v5 engine switched on. Tolerance: exact equality of bytes,
 indexes, batch kinds, produced counts and err flags."""
 import zlib
 
@@ -22,6 +23,16 @@ from jdeflate_tpu_torch.utils import errors as terrors
 # small batches, so a 256 KiB stream spans several halo-chained batches
 BATCH = dict(max_batch_bits=1 << 18, max_batch_blocks=8,
              max_batch_out=1 << 16)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The tensors here are small; torch's default thread pool only spins
+    against the other test workers' JAX compiles."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _mixed(corpus, n=1 << 18):
@@ -64,8 +75,8 @@ def _batch_tokens(raw, dictionary=b""):
     td.capture_calls = True
     index = td.build_index(raw, dictionary)
     td.decompress(raw, index=index, dictionary=dictionary)
-    words, metas, row, halo, npe, nb, oc = td.last_calls[0]
-    args = tinf._walk_inputs(words, metas[row], npe, nb)[0]
+    words, metas, row, halo, npe, nb, oc, ww = td.last_calls[0]
+    args = tinf._walk_inputs(words, metas[row], npe, nb, ww)[0]
     tok, outlen = twalk.walk_cuda(*args)[:2]
     return tok, outlen, halo, oc
 
@@ -147,12 +158,11 @@ def test_tampered_anchor_same_fallback(corpus):
     assert any(k2 == "win" and e > 0 for k2, _, e in stats)
 
 
-def test_segment_clamp_fault_is_fixed():
-    """ROADMAP C5: the reference clamps the last pseudo-entry's word segment
-    into the batch's bucketed window, so that batch fails its exit-chain
-    check and falls back to the native decoder. The port reads the whole
-    stream and decodes the batch on the device. Both return the right bytes;
-    only the reference's batch errs."""
+def test_segment_clamp_matches_reference():
+    """ROADMAP C5 (repaired): the last pseudo-entry's word segment clamps
+    into the batch's bucketed window on both sides, so that batch reads
+    shifted words, fails its exit-chain check and falls back to the native
+    decoder on both sides. Bytes and last_stats are equal."""
     rng = np.random.default_rng(1)
     words = [b"the ", b"quick ", b"brown ", b"fox ", b"jumps \n"]
     data = (b"".join(words[i] for i in rng.integers(0, 5, 60000))[:200000]
@@ -163,13 +173,10 @@ def test_segment_clamp_fault_is_fixed():
     jd, td = jinf.RawInflater(), tinf.RawInflater(device="cpu")
     assert jd.decompress(raw, index=index) == data
     assert td.decompress(raw, index=index) == data
-    # the reference stops at its erring first batch and decodes the rest
-    # natively; the port runs every batch on the device without an error
     (jk, _, je), = jd.last_stats
     assert jk == "win" and int(je) > 0
-    assert td.last_stats[0][0] == "win"
-    assert all(e == 0 for _, _, e in td.last_stats)
-    assert sum(int(p) for _, p, _ in td.last_stats) == len(data)
+    assert [(k, int(p), int(e)) for k, p, e in td.last_stats] == \
+        [(k, int(p), int(e)) for k, p, e in jd.last_stats]
 
 
 def test_dictionary_stream_matches_jax(corpus):
@@ -182,12 +189,36 @@ def test_dictionary_stream_matches_jax(corpus):
 
 
 def test_index_without_window_anchors_is_refused(corpus):
+    """An index without window anchors is not refused (the name is kept
+    from when the port refused it): every batch takes the dense branch, as
+    in the reference, with equal bytes and last_stats."""
     data = corpus("text", 20000)
     raw = _zlib_raw(data, 6)
     index = tinf.RawInflater(device="cpu").build_index(raw)
     index = {k: v for k, v in index.items() if k != "win"}
-    with pytest.raises(terrors.IncorrectUseError):
-        tinf.RawInflater(device="cpu").decompress(raw, index=index)
+    out, stats = _both_decode(raw, index)
+    assert out == data
+    assert [k for k, _, _ in stats] == ["dense"] * len(stats)
+
+
+def test_engine_switch_v5(corpus, monkeypatch):
+    """JDT_EXPAND=5 sends the windowed batches through the v5 engine: the
+    bytes are exact and the batch kinds are engine 2's (the reference on the
+    CPU never takes engine 5, so err parity is held in
+    tests/test_torch_expand5.py)."""
+    data = _mixed(corpus)
+    raw = _zlib_raw(data, 6)
+    index = tinf.RawInflater(device="cpu").build_index(raw)
+    td = tinf.RawInflater(device="cpu", **BATCH)
+    assert td.decompress(raw, index=index) == data
+    kinds2 = [k for k, _, _ in td.last_stats]
+    monkeypatch.setenv("JDT_EXPAND", "5")
+    assert td.decompress(raw, index=index) == data
+    assert [k for k, _, _ in td.last_stats] == kinds2
+    assert all(e == 0 for _, _, e in td.last_stats)
+    jd = jinf.RawInflater(**BATCH)
+    assert jd.decompress(raw, index=index) == data
+    assert [k for k, _, _ in jd.last_stats] == kinds2
 
 
 def test_cuda_requested_without_card_raises():

@@ -195,8 +195,8 @@ def test_walk_kernel_matches_plain_on_card(corpus):
     dec = I.RawInflater(device="cuda")
     dec.capture_calls = True
     assert dec.decompress(raw, index=dec.build_index(raw)) == data
-    words, metas, row, _, npe, nb, _ = dec.last_calls[0]
-    args = I._walk_inputs(words, metas[row], npe, nb)[0]
+    words, metas, row, _, npe, nb, _, ww = dec.last_calls[0]
+    args = I._walk_inputs(words, metas[row], npe, nb, ww)[0]
     got = twalk.walk_cuda(*args)
     want = twalk.walk_windows_ref(*args)
     torch.cuda.synchronize()
