@@ -26,7 +26,11 @@ with block offsets only (its segmented orbits err in both packages,
 ROADMAP C8), and a 1 MiB dense decode held against the CPU. Each kernel is
 held against its plain PyTorch version on the main path's inputs, the
 encoder's integer stages on the card against the same stages on the CPU,
-and everything is timed. Any failure exits non-zero. The last line is
+and everything is timed. The token expansion (B2) is held to its plain
+version and to the corpus on every windowed batch at err 0, on synthetic
+adversarial token streams (adversarial_tokens) and over three runs of one
+batch; the match walk (B3) on all encode batches and on synthetic edge
+cases (adversarial_walks). Any failure exits non-zero. The last line is
 {"ok": true, "device": {...}}; the line with {"kernels": [...]} before it
 lists every kernel with its launches, error against the plain version,
 time, bound, the plain version's time and the library call's time.
@@ -137,6 +141,28 @@ def gpu_ms(fn, reps: int = 3) -> float:
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / reps
+
+
+def device_ms(fn, names, reps: int = 5) -> float:
+    """Device time per call of the kernels whose names contain one of
+    `names`, over reps calls of fn after one warm call (torch.profiler): the
+    kernels' own time, without the gaps where the device waits for the
+    host to launch the next call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and any(n in e.key for n in names))
+    if us <= 0:
+        fail(f"the profiler saw no device time for {names}")
+    return us / 1e3 / reps
 
 
 def profile_run(what: str, fn, span_s: float) -> None:
@@ -270,20 +296,14 @@ def encode_phase(data: bytes, zlib6_len: int, card: str) -> dict:
         take = lz77.parse_take(length, dist, blen, cfg.lazy, cfg.good_length)
         cn, ln = lz77.walk_inputs(length, take, blen, bl)
         win.append((cn, ln, blen.to(torch.int32)))
-    err = 0
-    for cn, ln, blen in win[:2]:
-        err = max(err, max_abs_err([lz77.match_walk(cn, ln, blen, bl)],
-                                   [lz77.match_walk_ref(cn, ln, blen, bl)]))
-    if err:
-        fail(f"match walk differs from its plain version: {err}")
+    err = match_walk_checks(win, bl)
     call_cpu = (calls[0][0].cpu(), *calls[0][1:])
     for stage in ("match", "walk"):
         gpu = D.encode_batch(*calls[0], *statics, stage=stage)
         cpu = D.encode_batch(*call_cpu, *statics, stage=stage)
         if any(not torch.equal(g.cpu(), c) for g, c in zip(gpu, cpu)):
             fail(f"encode stage {stage!r} on the card differs from the CPU")
-    print("match walk equals its plain version on 2 batches (max abs err "
-          "0); stages 'match' and 'walk' of batch 0 equal on card and CPU",
+    print("stages 'match' and 'walk' of batch 0 equal on card and CPU",
           flush=True)
 
     ms, plain, bound, counts = [], [], [], []
@@ -299,6 +319,8 @@ def encode_phase(data: bytes, zlib6_len: int, card: str) -> dict:
         nb = cn.shape[0]
         moved = 4 * (2 * int(c.sum()) + 2 * nb) + 4 * nb * lz77.WALK_CAP
         bound.append(moved / HBM_BYTES_PER_S * 1e3)
+    dev_ms = device_ms(lambda: [lz77.match_walk(*w, bl) for w in win],
+                       ("match_walk_kernel",), 3) / len(win)
     per_step = [m * 1e6 / int(c.max()) for m, c in zip(ms, counts)
                 if int(c.max()) > 0]
     print(f"lz77walk ({card}): {statistics.mean(ms):.3f} ms/launch x "
@@ -307,8 +329,9 @@ def encode_phase(data: bytes, zlib6_len: int, card: str) -> dict:
           f"{statistics.mean(bound):.5f} ms; matches per block mean "
           f"{float(torch.cat(counts).float().mean()):.0f}, max per launch "
           f"mean {statistics.mean(int(c.max()) for c in counts):.0f}; "
-          f"latency chain {statistics.mean(per_step):.1f} ns per step of "
-          "the longest block", flush=True)
+          f"{statistics.mean(per_step):.1f} ns per match of the longest "
+          f"block; the kernel's device time {dev_ms:.4f} ms/launch",
+          flush=True)
     return {"name": "lz77walk", "route": "cuda",
             "source": "jdeflate_tpu_torch/csrc/lz77walk.cu",
             "replaces": "jdeflate_tpu/ops/lz77.py:388",
@@ -337,6 +360,19 @@ def batch_offsets(dec, raw: bytes, index: dict, kind: str) -> list:
             res.append((pos, n))
         pos += n
     return res
+
+
+def corpus_halo(data: bytes, o0: int):
+    """The 32 KiB of the corpus before output offset o0 (zeros before the
+    start), on the card: the history a batch starting there resolves
+    behind."""
+    import torch
+    h = data[max(o0 - 32768, 0):o0]
+    halo = torch.zeros(32768, dtype=torch.uint8, device="cuda")
+    if h:
+        halo[32768 - len(h):] = torch.frombuffer(bytearray(h),
+                                                 dtype=torch.uint8).cuda()
+    return halo
 
 
 def card_share(stats: list, n: int) -> str:
@@ -454,12 +490,8 @@ def v5_phase(dec, raw: bytes, data: bytes, idx: dict, e2_errs: list,
                 skipped += 1
                 continue
             produced = int(outlen.sum())
-            h = data[max(o0 - I.HALO, 0):o0]
-            halo = torch.zeros(I.HALO, dtype=torch.uint8, device="cuda")
-            if h:
-                halo[I.HALO - len(h):] = torch.frombuffer(
-                    bytearray(h), dtype=torch.uint8).cuda()
-            got = ex5.resolve(P, halo, oc)[0][:produced].cpu().numpy()
+            got = ex5.resolve(P, corpus_halo(data, o0), oc)[0][
+                :produced].cpu().numpy()
             if produced != n_out or got.tobytes() != data[o0:o0 + n_out]:
                 fail(f"v5 windowed batch {k}: the card's {produced} B differ "
                      f"from the corpus's {n_out} B at offset {o0}")
@@ -534,6 +566,120 @@ def v5_phase(dec, raw: bytes, data: bytes, idx: dict, e2_errs: list,
          "bound_ms": _mean(rs_bound), "bound_by": "bytes",
          "library_ms": None},
     ]
+
+
+def _pack_lanes(rng, toks: list, lit_lanes: int = 0) -> tuple:
+    """Flat u32 tokens -> lane-major (L, 32) int32 rows and per-lane output
+    bytes. Each lane takes 0-32 consecutive tokens (0 and short counts are
+    lanes that end early); the first `lit_lanes` lanes take 32 each."""
+    import numpy as np
+    lanes, i = [], 0
+    while i < len(toks):
+        k = 32 if len(lanes) < lit_lanes else int(rng.choice(
+            [0, 1, 2, 5, 17, 31, 32], p=[.05, .15, .3, .25, .1, .05, .1]))
+        lanes.append(toks[i:i + k])
+        i += k
+    tok = np.zeros((len(lanes), 32), np.uint32)
+    outlen = np.zeros(len(lanes), np.int32)
+    for l, row in enumerate(lanes):
+        tok[l, :len(row)] = row
+        outlen[l] = sum(1 if t >> 30 == 1 else t & 0x1FF for t in row)
+    return tok.view(np.int32), outlen
+
+
+def adversarial_tokens(seed: int = 0, scale: int = 1 << 17) -> list:
+    """Synthetic token batches for the token expansion, each about `scale`
+    output bytes: [(name, tok (L, 32) int32, outlen (L,) int32, halo
+    (32768,) uint8, out_cap)] as numpy arrays. Cases: runs of d = 1,
+    len = 258 matches; d = 32768 matches reaching the first halo byte;
+    overlapping copies (d < len) with every d in 1..8; chains of matches
+    copying earlier matches across many 4 KiB and 16 KiB tile seams; lanes
+    of 32 literals and lanes that end early; out_cap equal to the bytes
+    produced and below them."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    halo = rng.integers(0, 256, 32768, dtype=np.uint8)
+
+    def lit(b):
+        return (1 << 30) | int(b)
+
+    def match(n, d):
+        return (2 << 30) | n | ((d - 1) << 9)
+
+    def chains(n_out, dmax):
+        out, pos = [], 0
+        while pos < n_out:
+            if rng.random() < 0.15:
+                out.append(lit(rng.integers(256)))
+                pos += 1
+                continue
+            n = int(rng.integers(3, 259))
+            out.append(match(n, int(rng.integers(1, min(dmax, 32768 + pos)
+                                                 + 1))))
+            pos += n
+        return out
+
+    cases = []
+
+    def add(name, toks, lit_lanes=0, cap=None):
+        tok, outlen = _pack_lanes(rng, toks, lit_lanes)
+        produced = int(outlen.sum())
+        cases.append((name, tok, outlen, halo,
+                      produced if cap is None else cap(produced)))
+
+    n258 = scale // 258
+    add("d1_runs", [lit(7)] + [match(258, 1)] * n258)
+    add("d32768_halo", [match(258, 32768)] * 4 + chains(scale, 32768))
+    ov = []
+    while len(ov) < scale // 40:
+        d = int(rng.integers(1, 9))
+        ov += [lit(rng.integers(256)) for _ in range(d)]
+        ov.append(match(int(rng.integers(d + 1, 259)), d))
+    add("overlap_d1_8", ov)
+    add("chains_near", chains(scale, 64))
+    add("chains_far", chains(scale, 32768))
+    add("all_literal", [lit(b) for b in rng.integers(0, 256, scale // 4)],
+        lit_lanes=1 << 30)
+    add("lanes_end_early", chains(scale, 4096))
+    add("cap_exact", chains(scale, 20000), cap=lambda p: p)
+    add("cap_short", chains(scale, 20000), cap=lambda p: p - p // 3)
+    return cases
+
+
+def adversarial_walks(seed: int = 0, bl: int = 1 << 16) -> list:
+    """Synthetic match-walk inputs: [(name, length (B, bl) int32, take (B, bl)
+    bool, block_len (B,) int32)] as numpy arrays. Cases: block_len 0, 1,
+    bl - 1 and bl; no candidates; length-3 matches at every position (the
+    count nears the plist capacity); a match ending exactly at block_len."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    pos = np.arange(bl)[None, :]
+
+    def rand(block_len):
+        B = len(block_len)
+        length = rng.integers(3, 259, (B, bl))
+        length[rng.random((B, bl)) < 0.7] = 0
+        length = np.minimum(length, block_len[:, None] - pos)
+        length = np.where(length >= 3, length, 0).astype(np.int32)
+        return length, length >= 3
+
+    cases = []
+    bl_edges = np.asarray([0, 1, bl - 1, bl], np.int32)
+    cases.append(("block_len_edges", *rand(bl_edges), bl_edges))
+    full = np.full(2, bl, np.int32)
+    length, _ = rand(full)
+    cases.append(("no_candidates", length, np.zeros_like(length, bool), full))
+    three = np.where(pos < full[:, None] - 2, 3, 0).astype(np.int32)
+    cases.append(("len3_everywhere", three, three > 0, full))
+    ends = np.asarray([bl, bl - 7, 4096, 3], np.int32)
+    length, _ = rand(ends)
+    for b, e in enumerate(ends):
+        # nothing in the 258 bytes before it can jump over it
+        n = min(int(e), 9)
+        length[b, max(e - n - 258, 0):e] = 0
+        length[b, e - n] = n
+    cases.append(("match_ends_at_block_len", length, length >= 3, ends))
+    return cases
 
 
 def symbol_anchors(raw: bytes, index: dict, dev: str) -> list:
@@ -733,6 +879,101 @@ def dense_phase(data: bytes, card: str) -> None:
           flush=True)
 
 
+def expand2_checks(per: list, offs: list, data: bytes) -> int:
+    """Kernel B2 (csrc/expand.cu) against its plain version and the corpus.
+    per: (walk args, halo, out_cap, engine-2 err) of each windowed batch;
+    offs: each batch's (output offset, length). On every batch at err 0,
+    behind the corpus's own 32 KiB: the card's bytes equal the plain
+    version's and the corpus slice; then literal-run annotation changes no
+    byte, three runs on the largest batch give the same bytes, and every
+    synthetic adversarial stream (2 MiB each) equals the plain version.
+    Returns the max abs err."""
+    import torch
+    from jdeflate_tpu_torch.ops import expand2 as ex2
+    from jdeflate_tpu_torch.ops import walk as wk
+    err = checked = 0
+    largest = None
+    for k, ((args, _, oc, e2), (o0, n_out)) in enumerate(zip(per, offs)):
+        if e2:
+            continue
+        tok, outlen = wk.walk_cuda(*args)[:2]
+        halo = corpus_halo(data, o0)
+        o, p, e = ex2.expand_tokens(tok, outlen, halo, oc)
+        ro, rp, re_ = ex2.expand_tokens_ref(tok, outlen, halo, oc)
+        n = int(rp)
+        if int(p) != n or int(e) or int(re_):
+            fail(f"expand2 batch {k}: produced {int(p)} err {int(e)}, plain "
+                 f"{n} err {int(re_)}")
+        err = max(err, max_abs_err([o[:n]], [ro[:n]]))
+        if n != n_out or o[:n].cpu().numpy().tobytes() != data[o0:o0 + n]:
+            fail(f"expand2 windowed batch {k}: the card's {n} B differ from "
+                 f"the corpus's {n_out} B at offset {o0}")
+        if largest is None or n > largest[0]:
+            largest = (n, tok, outlen, halo, oc)
+        checked += 1
+    if err or checked == 0:
+        fail(f"expand2 differs from its plain version ({err}) or no batch "
+             "was held")
+    n, tok, outlen, halo, oc = largest
+    ann = ex2.expand_tokens(wk.annotate_lit_runs(tok), outlen, halo, oc)[0]
+    runs = [ex2.expand_tokens(tok, outlen, halo, oc)[0][:n].clone()
+            for _ in range(3)]
+    if not torch.equal(ann[:n], runs[0]) or not all(
+            torch.equal(r, runs[0]) for r in runs[1:]):
+        fail("expand2: annotated tokens or repeated runs give other bytes")
+    print(f"expand2 equals its plain version and the corpus on {checked} of "
+          f"{len(per)} windowed batches (those at engine-2 err 0, each behind "
+          f"the corpus's 32 KiB; max abs err 0); annotated tokens and 3 runs "
+          f"of the largest batch ({n} B) give the same bytes", flush=True)
+    names = []
+    for name, tok, outlen, halo, oc in adversarial_tokens(seed=0,
+                                                          scale=1 << 21):
+        tok, outlen, halo = (torch.from_numpy(x).cuda()
+                             for x in (tok, outlen, halo))
+        o, p, e = ex2.expand_tokens(tok, outlen, halo, oc)
+        ro, rp, re_ = ex2.expand_tokens_ref(tok, outlen, halo, oc)
+        k = min(int(rp), oc)
+        if (int(p) != int(rp) or bool(e) != bool(re_)
+                or bool(e) != (name == "cap_short")
+                or not torch.equal(o[:k], ro[:k])):
+            fail(f"expand2 adversarial stream {name}: produced {int(p)} vs "
+                 f"{int(rp)}, err {int(e)} vs {int(re_)}, "
+                 f"{max_abs_err([o[:k]], [ro[:k]])} max abs err")
+        names.append(f"{name} {int(rp)} B")
+    print(f"expand2 equals its plain version on the adversarial streams: "
+          f"{', '.join(names)}", flush=True)
+    return err
+
+
+def match_walk_checks(win: list, bl: int) -> int:
+    """Kernel B3 (csrc/lz77walk.cu) against its plain version on every
+    encode batch's inputs (win: (cnext, len, block_len) per batch) and on
+    the synthetic adversarial cases. Returns the max abs err."""
+    import torch
+    from jdeflate_tpu_torch.ops import lz77
+    err = 0
+    for cn, ln, blen in win:
+        err = max(err, max_abs_err([lz77.match_walk(cn, ln, blen, bl)],
+                                   [lz77.match_walk_ref(cn, ln, blen, bl)]))
+    if err:
+        fail(f"match walk differs from its plain version: {err}")
+    names = []
+    for name, length, take, block_len in adversarial_walks(seed=0, bl=bl):
+        blt = torch.from_numpy(block_len).cuda()
+        cn, ln = lz77.walk_inputs(torch.from_numpy(length).long().cuda(),
+                                  torch.from_numpy(take).cuda(), blt, bl)
+        got = lz77.match_walk(cn, ln, blt, bl)
+        want = lz77.match_walk_ref(cn, ln, blt, bl)
+        if not torch.equal(got, want):
+            fail(f"match walk adversarial case {name}: "
+                 f"{max_abs_err([got], [want])} max abs err")
+        names.append(f"{name} (counts {(want[:, 0] - 1).tolist()})")
+    print(f"match walk equals its plain version on all {len(win)} encode "
+          f"batches and on the adversarial cases: {', '.join(names)}",
+          flush=True)
+    return err
+
+
 def clamps_segment(call) -> bool:
     """Whether a captured windowed batch's last pseudo-entry reads past its
     word window, so its segment start clamps (ROADMAP C5)."""
@@ -839,28 +1080,26 @@ def main() -> None:
         fail("gzip decode differs from the corpus")
     print("gzip-framed decode with CRC32 trailer check: ok", flush=True)
 
-    # ---- 4. each kernel against its plain version, on the card
+    # ---- 4. each kernel against its plain version, on the card. Every
+    # captured batch is decoded again on its own, which gives its engine-2
+    # err also past the first erring batch (the log stops there).
     per = []
     for words, metas, row, halo, npe, nb, oc, ww in calls:
         args = I._walk_inputs(words, metas[row], npe, nb, ww)[0]
-        per.append((args, halo, oc))
-    walk_err = exp_err = 0
-    for args, halo, oc in per[:2]:
-        got = wk.walk_cuda(*args)
-        want = wk.walk_windows_ref(*args)
-        walk_err = max(walk_err, max_abs_err(got, want))
-        ann = wk.annotate_lit_runs(got[0])
-        o, p, e = ex2.expand_tokens(ann, got[1], halo, oc)
-        ro, rp, re_ = ex2.expand_tokens_ref(ann, got[1], halo, oc)
-        n = int(rp)
-        if int(p) != n or int(e) != 0 or int(re_) != 0:
-            fail(f"expand produced {int(p)} vs plain {n}")
-        exp_err = max(exp_err, max_abs_err([o[:n]], [ro[:n]]))
-    if walk_err or exp_err:
-        fail(f"kernel differs from plain version: walk {walk_err}, "
-             f"expand {exp_err}")
-    print(f"kernels equal their plain versions on {min(2, len(per))} "
-          "batches (max abs err 0)", flush=True)
+        e2 = int(I._decode_from_meta(words, metas[row], halo, npe, nb, oc,
+                                     ww)[2])
+        per.append((args, halo, oc, e2))
+    e2_errs = [p[3] for p in per]
+    if e2_errs[:len(errs)] != errs:
+        fail(f"batch errs decoded alone {e2_errs[:len(errs)]} != the "
+             f"decode's {errs}")
+    walk_err = 0
+    for args, _, _, _ in per[:2]:
+        walk_err = max(walk_err, max_abs_err(wk.walk_cuda(*args),
+                                             wk.walk_windows_ref(*args)))
+    if walk_err:
+        fail(f"walk kernel differs from its plain version: {walk_err}")
+    exp_err = expand2_checks(per, batch_offsets(dec, raw, idx, "win"), data)
 
     # ---- 5. fallback: a tampered anchor errs and is re-decoded natively
     k = max((i for i, w in enumerate(idx["win"]) if w is not None),
@@ -878,21 +1117,22 @@ def main() -> None:
 
     # ---- 6. times
     walk_ms, exp_ms, walk_bound, exp_bound = [], [], [], []
-    walk_plain, exp_plain = [], []
+    walk_plain, exp_plain, exp_args = [], [], []
     ntok = 0
     lanes = []
-    for args, halo, oc in per:
+    for args, halo, oc, _ in per:
         start_rel, t1 = args[3], args[4]
         L = start_rel.numel()
         lanes.append(L)
         res = wk.walk_cuda(*args)
-        ann = wk.annotate_lit_runs(res[0])
+        lo = torch.cumsum(res[1], 0) - res[1]
         walk_ms.append(gpu_ms(lambda: wk.walk_cuda(*args)))
-        exp_ms.append(gpu_ms(lambda: ex2.expand_tokens(ann, res[1], halo,
-                                                       oc)))
+        exp_ms.append(gpu_ms(lambda: ex2.expand_tokens(res[0], res[1], halo,
+                                                       oc, lo)))
+        exp_args.append((res[0], res[1], halo, oc, lo))
         walk_plain.append(gpu_ms(lambda: wk.walk_windows_ref(*args), 1))
         exp_plain.append(gpu_ms(
-            lambda: ex2.expand_tokens_ref(ann, res[1], halo, oc), 1))
+            lambda: ex2.expand_tokens_ref(res[0], res[1], halo, oc), 1))
         # least bytes: each input read once, each output written once
         active = int((start_rel >= 0).sum())
         walk_bytes = (active * 4 + L * 4 + 4 * t1.shape[0] * 128 * 4
@@ -903,6 +1143,9 @@ def main() -> None:
         exp_bound.append(exp_bytes / HBM_BYTES_PER_S * 1e3)
         ntok += int((res[0] != 0).sum())
 
+    exp_dev = device_ms(lambda: [ex2.expand_tokens(*a) for a in exp_args],
+                        ("expand_place_kernel", "expand_resolve_kernel"),
+                        3) / len(exp_args)
     wall, span, walls = timed_runs(
         lambda: dec.decompress(raw, index=idx),
         lambda o: o == data or fail("timed decode differs from the corpus"))
@@ -921,12 +1164,12 @@ def main() -> None:
           f"{[round(x, 3) for x in exp_ms]}); "
           f"plain {statistics.mean(exp_plain):.3f} ms; bound "
           f"{statistics.mean(exp_bound):.4f} ms; {ntok} tokens, "
-          f"{sum(exp_ms) * 1e6 / ntok:.1f} ns/token", flush=True)
+          f"{sum(exp_ms) * 1e6 / ntok:.1f} ns/token; the place and resolve "
+          f"kernels' device time {exp_dev:.4f} ms/launch", flush=True)
     profile_run("decode", lambda: dec.decompress(raw, index=idx), span)
 
     enc_kernel = encode_phase(data, len(raw), card)
-    v5_kernels = v5_phase(dec, raw, data, idx,
-                          errs + [0] * (nwin - len(errs)), card)
+    v5_kernels = v5_phase(dec, raw, data, idx, e2_errs, card)
     anch_kernel = anchored_phase(data, card)
     dense_phase(data, card)
 

@@ -158,9 +158,8 @@ def _decode_from_meta(words_full, meta, halo, npe: int, ne: int,
                                                 out_cap)
         aerr = kerr + (produced > out_cap).to(kerr.dtype)
     else:
-        tok_ann = wk.annotate_lit_runs(tok_lm)
-        out, produced, aerr = ex2.expand_tokens(tok_ann, outlen, halo,
-                                                out_cap)
+        out, produced, aerr = ex2.expand_tokens(tok_lm, outlen, halo,
+                                                out_cap, laneoff)
     return out, produced, err_w + aerr, _next_window(halo, out, produced,
                                                      out_cap)
 

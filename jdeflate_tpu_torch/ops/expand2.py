@@ -1,14 +1,17 @@
-"""Token expansion: lane-major annotated walk tokens -> output bytes.
+"""Token expansion: lane-major walk tokens -> output bytes.
 
 Two implementations of one contract (the JAX package's ops/expand2.py):
   * expand_tokens_ref - plain PyTorch (token slots through
     decode.assemble_output), any device;
-  * expand_tokens - the CUDA kernel csrc/expand.cu on a CUDA tensor, the
+  * expand_tokens - the CUDA kernels of csrc/expand.cu on a CUDA tensor, the
     plain version on a CPU tensor.
 
-The kernel is serial by design: one warp walks a batch's lanes in order,
-because a match may read the bytes the token before it wrote (see the note
-in csrc/expand.cu).
+On the card a place kernel writes each output position's collapsed source
+(or literal byte) into a map, and a resolve kernel grounds the map in
+16 KiB tiles spread over every SM: pointer doubling inside a tile, then
+pointers into earlier tiles followed through the states those tiles
+publish, so no tile waits for another to finish (see the note in
+csrc/expand.cu).
 """
 from __future__ import annotations
 
@@ -21,7 +24,7 @@ from . import decode as dk
 from . import walk as wk
 
 HALO = C.WINDOW_SIZE                  # 32768
-LANE_MAX_OUT = wk.S_SLOTS * C.MAX_MATCH  # one lane's maximum output
+TILE = 16384                          # resolve tile, kTile in csrc/expand.cu
 
 
 def token_slots(tok_lm: torch.Tensor):
@@ -49,37 +52,50 @@ def expand_tokens_ref(tok_lm: torch.Tensor, outlen: torch.Tensor,
 
 
 def expand_tokens(tok_lm: torch.Tensor, outlen: torch.Tensor,
-                  halo: torch.Tensor, out_cap: int):
-    """Expand lane-major annotated tokens into output bytes.
+                  halo: torch.Tensor, out_cap: int,
+                  laneoff: torch.Tensor | None = None):
+    """Expand lane-major tokens into output bytes.
 
-    tok_lm: (L, S_SLOTS) i32 u32 bit patterns, run-annotated
-      (walk.annotate_lit_runs). outlen: (L,) i32 per-lane output bytes.
-    halo: (HALO,) u8 history. Returns (out (out_cap,) u8, produced, err):
-    on CUDA err is produced > out_cap, as in the reference's kernel path.
-    Counts its kernel launches in expand_tokens.launches."""
+    tok_lm: (L, S_SLOTS) i32 u32 bit patterns; the literal run lengths of
+      walk.annotate_lit_runs are optional (a literal's byte is read from
+      bits 0:8 only). outlen: (L,) i32 per-lane output bytes.
+    halo: (HALO,) u8 history. laneoff: optional (L,) i64 exclusive cumsum of
+      outlen (the caller's, so it is not computed twice).
+    Returns (out (out_cap,) u8, produced, err): on CUDA err is produced >
+    out_cap, as in the reference's kernel path, and nothing is read back to
+    the host. Counts its kernel launches in expand_tokens.launches."""
     if tok_lm.device.type == "cpu":
         return expand_tokens_ref(tok_lm, outlen, halo, out_cap)
     from . import _cuda
     dev = tok_lm.device
     L = tok_lm.shape[0]
+    if laneoff is None:
+        laneoff = torch.cumsum(outlen, 0, dtype=torch.int64) - outlen
     for name, t, dt, shape in (("tok_lm", tok_lm, torch.int32,
                                 (L, wk.S_SLOTS)),
                                ("outlen", outlen, torch.int32, (L,)),
+                               ("laneoff", laneoff, torch.int64, (L,)),
                                ("halo", halo, torch.uint8, (HALO,))):
         _cuda.check_tensor(t, name, dt, dev, shape)
     fn = _cuda.entry("expand", "jd_expand",
-                     [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
+                     [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+                      ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
+                      ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
                       ctypes.c_int64, ctypes.c_void_p])
-    buf_len = HALO + out_cap + LANE_MAX_OUT
-    buf = torch.empty(buf_len, dtype=torch.uint8, device=dev)
+    tiles = -(-out_cap // TILE)
+    buf = torch.empty(HALO + out_cap, dtype=torch.uint8, device=dev)
     buf[:HALO] = halo
+    srcmap = torch.empty(tiles * TILE, dtype=torch.int32, device=dev)
+    # the tile ticket, then each tile's "states published" flag
+    sync = torch.zeros(1 + tiles, dtype=torch.int32, device=dev)
+    produced = outlen.sum(dtype=torch.int64)
     with torch.cuda.device(dev):
-        rc = fn(tok_lm.data_ptr(), L, buf.data_ptr(), buf_len,
-                _cuda.stream_ptr())
+        rc = fn(tok_lm.data_ptr(), laneoff.data_ptr(), L, srcmap.data_ptr(),
+                srcmap.numel(), buf.data_ptr(), produced.data_ptr(), out_cap,
+                sync.data_ptr(), sync.numel(), _cuda.stream_ptr())
     _cuda.check(rc, "expand kernel launch")
     expand_tokens.launches += 1
-    produced = outlen.sum(dtype=torch.int64)
-    return buf[HALO:HALO + out_cap], produced, (produced > out_cap).long()
+    return buf[HALO:], produced, (produced > out_cap).long()
 
 
 expand_tokens.launches = 0

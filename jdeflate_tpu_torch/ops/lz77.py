@@ -357,12 +357,15 @@ def match_walk(cnextp, lenp, block_len, bl: int):
     _cuda.check_tensor(cnextp, "cnextp", torch.int32, dev)
     _cuda.check_tensor(lenp, "lenp", torch.int32, dev, (B, n))
     _cuda.check_tensor(block_len, "block_len", torch.int32, dev, (B,))
-    fn = _cuda.entry("lz77walk", "jd_match_walk", [ctypes.c_void_p] * 4
-                     + [ctypes.c_int] * 3 + [ctypes.c_void_p])
-    plist = torch.zeros((B, WALK_CAP), dtype=torch.int32, device=dev)
+    fn = _cuda.entry("lz77walk", "jd_match_walk", [ctypes.c_void_p] * 5
+                     + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    plist = torch.empty((B, WALK_CAP), dtype=torch.int32, device=dev)
+    # the kernel's ping-pong jump tables, 2 x (bl + 1) per block
+    jumps = torch.empty((B, 2, bl + 1), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         rc = fn(cnextp.data_ptr(), lenp.data_ptr(), block_len.data_ptr(),
-                plist.data_ptr(), B, n, WALK_CAP, _cuda.stream_ptr())
+                plist.data_ptr(), jumps.data_ptr(), B, n, bl, WALK_CAP,
+                _cuda.stream_ptr())
     _cuda.check(rc, "match walk kernel launch")
     match_walk.launches += 1
     return plist
