@@ -30,10 +30,15 @@ and everything is timed. The token expansion (B2) is held to its plain
 version and to the corpus on every windowed batch at err 0, on synthetic
 adversarial token streams (adversarial_tokens) and over three runs of one
 batch; the match walk (B3) on all encode batches and on synthetic edge
-cases (adversarial_walks). Any failure exits non-zero. The last line is
-{"ok": true, "device": {...}}; the line with {"kernels": [...]} before it
-lists every kernel with its launches, error against the plain version,
-time, bound, the plain version's time and the library call's time.
+cases (adversarial_walks); the v5 seed (B4) and resolve (B5) on every
+windowed batch, the resolve also on synthetic plans (adversarial_plans);
+the v1 match expansion (B6) on every anchored batch, on synthetic token
+slots (adversarial_slots) and match lists (adversarial_match_lists). Any
+failure exits non-zero. The last line is {"ok": true, "device": {...}};
+the line with {"kernels": [...]} before it lists every kernel with its
+launches, error against the plain version, time (CUDA events around
+back-to-back calls, and its kernels' own device time from the profiler),
+bound, the plain version's time and the library call's time.
 
 Without a CUDA device it exits non-zero and prints no result.
 """
@@ -336,7 +341,8 @@ def encode_phase(data: bytes, zlib6_len: int, card: str) -> dict:
             "source": "jdeflate_tpu_torch/csrc/lz77walk.cu",
             "replaces": "jdeflate_tpu/ops/lz77.py:388",
             "launches": launches, "max_abs_err": err,
-            "ms": statistics.mean(ms), "plain_ms": statistics.mean(plain),
+            "ms": statistics.mean(ms), "dev_ms": dev_ms,
+            "plain_ms": statistics.mean(plain),
             "bound_ms": statistics.mean(bound), "bound_by": "bytes",
             "library_ms": None}
 
@@ -455,26 +461,37 @@ def v5_phase(dec, raw: bytes, data: bytes, idx: dict, e2_errs: list,
               f"{[p[6] for p in per if p[6]]}), over SPILL_K {nserr}; "
               f"native re-decode {native}", flush=True)
 
-        # ---- 8c. each kernel against its plain version on 2 batches
+        # ---- 8c. each kernel against its plain version on every batch,
+        # and the resolve on the synthetic plans (adversarial_plans)
         seed_err = res_err = 0
         plans = []
         for tok, outlen, halo, oc, off, seed, _, _ in per:
             S16 = ex5.seed_scatter(off, seed, oc)
-            S16f, _ = ex5.spill_pass(tok, outlen, S16, oc)
-            plans.append(ex5.propagate(ex5.seed16_to_plan(S16f)).contiguous())
-        for (tok, outlen, halo, oc, off, seed, _, _), P in zip(per[:2],
-                                                               plans):
             seed_err = max(seed_err, max_abs_err(
-                [ex5.seed_scatter(off, seed, oc)],
-                [ex5.seed_scatter_ref(off, seed, oc)]))
+                [S16], [ex5.seed_scatter_ref(off, seed, oc)]))
+            S16f, _ = ex5.spill_pass(tok, outlen, S16, oc)
+            P = ex5.propagate(ex5.seed16_to_plan(S16f)).contiguous()
+            plans.append(P)
             res_err = max(res_err, max_abs_err(
                 [ex5.resolve(P, halo, oc)[0]],
                 [ex5.resolve_ref(P, halo, oc)]))
         if seed_err or res_err:
             fail(f"v5 kernels differ from plain versions: seed {seed_err}, "
                  f"resolve {res_err}")
-        print("v5 seed and resolve kernels equal their plain versions on 2 "
-              "batches (max abs err 0)", flush=True)
+        names = []
+        for name, _, outlen, P, halo in adversarial_plans(seed=0,
+                                                          cap=1 << 21):
+            P, halo = torch.from_numpy(P).cuda(), torch.from_numpy(halo).cuda()
+            o, e = ex5.resolve(P, halo, P.numel())
+            r = ex5.resolve_ref(P, halo, P.numel())
+            if int(e) or not torch.equal(o, r):
+                fail(f"v5 resolve adversarial plan {name}: err {int(e)}, "
+                     f"{max_abs_err([o], [r])} max abs err")
+            names.append(f"{name} {int(outlen.sum())} B")
+        print(f"v5 seed and resolve kernels equal their plain versions on all "
+              f"{nwin} batches (max abs err 0); the resolve on the "
+              f"adversarial plans of {1 << 21} positions: {', '.join(names)}",
+              flush=True)
 
         # ---- 8c'. every batch's card output against the corpus slice it
         # covers: the decode above is native from the first erring batch,
@@ -529,15 +546,21 @@ def v5_phase(dec, raw: bytes, data: bytes, idx: dict, e2_errs: list,
             produced = int(outlen.sum())
             rs_bound.append((4 * produced + I.HALO + produced)
                             / HBM_BYTES_PER_S * 1e3)
+        sd_dev = device_ms(lambda: [ex5.seed_scatter(p[4], p[5], p[3])
+                                    for p in per], ("seed_kernel",), 3) / nwin
+        rs_dev = device_ms(lambda: [ex5.resolve(P, p[2], p[3])
+                                    for p, P in zip(per, plans)],
+                           ("PlanFront",), 3) / nwin
         print(f"expand5_seed ({card}): {_mean(sd_ms):.4f} ms/launch x "
               f"{launches['seed']}; plain {_mean(sd_plain):.4f} ms; "
               f"scatter_reduce_ {_mean(sd_lib):.4f} ms; bound "
-              f"{_mean(sd_bound):.5f} ms", flush=True)
+              f"{_mean(sd_bound):.5f} ms; the kernel's device time "
+              f"{sd_dev:.4f} ms/launch", flush=True)
         print(f"expand5_resolve ({card}): {_mean(rs_ms):.3f} ms/launch x "
               f"{launches['resolve']} (range {min(rs_ms):.3f}-"
               f"{max(rs_ms):.3f}); plain {_mean(rs_plain):.3f} ms (first "
-              f"{len(rs_plain)} batches); bound {_mean(rs_bound):.5f} ms",
-              flush=True)
+              f"{len(rs_plain)} batches); bound {_mean(rs_bound):.5f} ms; "
+              f"the kernel's device time {rs_dev:.4f} ms/launch", flush=True)
         wall, span, walls = timed_runs(
             lambda: dec.decompress(raw, index=idx),
             lambda o: o == data or fail("timed v5 decode differs"))
@@ -555,14 +578,14 @@ def v5_phase(dec, raw: bytes, data: bytes, idx: dict, e2_errs: list,
          "source": "jdeflate_tpu_torch/csrc/expand5seed.cu",
          "replaces": "jdeflate_tpu/ops/expand5.py:185",
          "launches": launches["seed"], "max_abs_err": seed_err,
-         "ms": _mean(sd_ms), "plain_ms": _mean(sd_plain),
+         "ms": _mean(sd_ms), "dev_ms": sd_dev, "plain_ms": _mean(sd_plain),
          "bound_ms": _mean(sd_bound), "bound_by": "bytes",
          "library_ms": _mean(sd_lib)},
         {"name": "expand5_resolve", "route": "cuda",
          "source": "jdeflate_tpu_torch/csrc/expand5resolve.cu",
          "replaces": "jdeflate_tpu/ops/expand5.py:358",
          "launches": launches["resolve"], "max_abs_err": res_err,
-         "ms": _mean(rs_ms), "plain_ms": _mean(rs_plain),
+         "ms": _mean(rs_ms), "dev_ms": rs_dev, "plain_ms": _mean(rs_plain),
          "bound_ms": _mean(rs_bound), "bound_by": "bytes",
          "library_ms": None},
     ]
@@ -583,8 +606,40 @@ def _pack_lanes(rng, toks: list, lit_lanes: int = 0) -> tuple:
     outlen = np.zeros(len(lanes), np.int32)
     for l, row in enumerate(lanes):
         tok[l, :len(row)] = row
-        outlen[l] = sum(1 if t >> 30 == 1 else t & 0x1FF for t in row)
+        outlen[l] = sum(_tok_len(t) for t in row)
     return tok.view(np.int32), outlen
+
+
+def _lit(b) -> int:
+    """A literal walk token (u32)."""
+    return (1 << 30) | int(b)
+
+
+def _match(n, d) -> int:
+    """A match walk token (u32) of length n at distance d."""
+    return (2 << 30) | int(n) | ((int(d) - 1) << 9)
+
+
+def _chains(rng, n_out: int, dmax: int, pos: int = 0) -> list:
+    """Walk tokens for at least n_out bytes from output offset pos (behind a
+    32 KiB halo): 15% literals, matches of 3-258 bytes at distances up to
+    dmax that never reach before the halo, so chains of copies of copies
+    cross the output."""
+    out, end = [], pos + n_out
+    while pos < end:
+        if rng.random() < 0.15:
+            out.append(_lit(rng.integers(256)))
+            pos += 1
+            continue
+        n = int(rng.integers(3, 259))
+        out.append(_match(n, int(rng.integers(1, min(dmax, 32768 + pos)
+                                              + 1))))
+        pos += n
+    return out
+
+
+def _tok_len(t: int) -> int:
+    return 1 if t >> 30 == 1 else t & 0x1FF
 
 
 def adversarial_tokens(seed: int = 0, scale: int = 1 << 17) -> list:
@@ -599,25 +654,10 @@ def adversarial_tokens(seed: int = 0, scale: int = 1 << 17) -> list:
     import numpy as np
     rng = np.random.default_rng(seed)
     halo = rng.integers(0, 256, 32768, dtype=np.uint8)
-
-    def lit(b):
-        return (1 << 30) | int(b)
-
-    def match(n, d):
-        return (2 << 30) | n | ((d - 1) << 9)
+    lit, match = _lit, _match
 
     def chains(n_out, dmax):
-        out, pos = [], 0
-        while pos < n_out:
-            if rng.random() < 0.15:
-                out.append(lit(rng.integers(256)))
-                pos += 1
-                continue
-            n = int(rng.integers(3, 259))
-            out.append(match(n, int(rng.integers(1, min(dmax, 32768 + pos)
-                                                 + 1))))
-            pos += n
-        return out
+        return _chains(rng, n_out, dmax)
 
     cases = []
 
@@ -679,6 +719,206 @@ def adversarial_walks(seed: int = 0, bl: int = 1 << 16) -> list:
         length[b, max(e - n - 258, 0):e] = 0
         length[b, e - n] = n
     cases.append(("match_ends_at_block_len", length, length >= 3, ends))
+    return cases
+
+
+def _trim(toks: list, n: int) -> list:
+    """The prefix of toks that produces exactly n bytes (the last match cut
+    to fit, or literals where fewer than 3 bytes are left)."""
+    out, pos = [], 0
+    for t in toks:
+        k = _tok_len(t)
+        if pos + k > n:
+            break
+        out.append(t)
+        pos += k
+    left = n - pos
+    if left >= 3 and len(out) < len(toks):      # the next token is a match
+        return out + [(toks[len(out)] & ~0x1FF) | left]
+    return out + [_lit(7)] * left
+
+
+def _seams(rng, pos: int, n_out: int, dmax: int) -> list:
+    """_chains with a 258-byte match across every 64 KiB mark it passes."""
+    out, end = [], pos + n_out
+    while pos < end:
+        mark = (pos // 65536 + 1) * 65536
+        t = (_match(258, int(rng.integers(1, min(dmax, 32768 + pos) + 1)))
+             if mark - pos < 258 else _chains(rng, 1, dmax, pos)[0])
+        out.append(t)
+        pos += _tok_len(t)
+    return out
+
+
+def adversarial_slots(seed: int = 0, scale: int = 1 << 17) -> list:
+    """Synthetic token slots for the v1 match expansion (B6) through
+    codec/inflate.py::_assemble_kernel: [(name, o_len, o_lit, o_dist (S,)
+    int32, halo (32768,) uint8, out_cap, first_slots (nblocks + 1,) int32)]
+    as numpy arrays, one shape for every case of a scale. About `scale`
+    output bytes in blocks of at most 60,000 (the reference kernel takes at
+    most 64 KiB a block), tokens in slots with empty slots between them,
+    each block starting on a 64-slot lane; block 1 has no slots (an empty
+    range). Cases: chains of matches across many 16 KiB tile seams; runs of
+    d = 1, then d = 3, over a third of the blocks each (the reference kernel
+    in interpret mode takes most of its time on these); d = 32768 matches
+    into the halo; 258-byte matches across every 64 KiB mark, each block
+    ending in one and the next block's first match reading back across the
+    seam; slots before the first block (matches outside every range) and a
+    literal-only block (its match range is empty)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    halo = rng.integers(0, 256, 32768, dtype=np.uint8)
+    nfill = -(-scale // 60000)             # blocks with output
+    per = scale // nfill
+    S = 64 * (scale // 2048 + 2 * nfill + 8)
+    cases = []
+
+    def add(name, blocks, lead=()):
+        o_len, o_lit, o_dist = (np.zeros(S, np.int32) for _ in range(3))
+        first, s = [], 0
+
+        def put(toks):
+            nonlocal s
+            for t in toks:
+                s += int(rng.random() < 0.25)      # an empty slot
+                o_len[s] = _tok_len(t)
+                if t >> 30 == 1:
+                    o_lit[s] = t & 0xFF
+                else:
+                    o_dist[s] = ((t >> 9) & 0x7FFF) + 1
+                s += 1
+            s = -(-s // 64) * 64
+
+        put(lead)
+        for k, toks in enumerate(blocks):
+            first.append(s)
+            if k == 1:
+                first.append(s)                    # the empty block
+            put(toks)
+        if s > S:
+            raise ValueError(f"{name}: {s} slots > {S}")
+        cases.append((name, o_len, o_lit, o_dist, halo, 2 * scale,
+                      np.asarray(first + [S], np.int32)))
+
+    def fill(dmax, pos=0):
+        blocks = []
+        for _ in range(nfill):
+            blocks.append(_trim(_chains(rng, per, dmax, pos), per))
+            pos += per
+        return blocks
+
+    add("chains_tile_seams", fill(32768))
+    blocks = fill(32768)
+    k = max(1, nfill // 3)
+    for b in range(min(2 * k, nfill)):
+        blocks[b] = _trim([_lit(5)] + [_match(258, 1 if b < k else 3)]
+                          * (per // 258 + 1), per)
+    add("d1_d3_runs", blocks)
+    blocks = fill(32768)
+    blocks[0] = _trim([_match(258, 32768)] * (40000 // 258)
+                      + _chains(rng, per, 32768, 40000 // 258 * 258), per)
+    add("d32768_halo", blocks)
+    blocks, pos = [], 0
+    for k in range(nfill):
+        head = ([_match(258, int(rng.integers(259, 4000)))] if k else [])
+        body = _seams(rng, pos + 258 * len(head), per - 516, 2048)
+        toks = head + body
+        pos += sum(_tok_len(t) for t in toks)
+        toks.append(_match(258, int(rng.integers(1, 300))))
+        pos += 258
+        blocks.append(toks)
+    add("block_seams_258", blocks)
+    lead = _chains(rng, 3000, 2048)
+    nlead = sum(_tok_len(t) for t in lead)
+    blocks = fill(32768, nlead)
+    blocks[0] = [_lit(b) for b in rng.integers(0, 256, 1500)]
+    add("ranges_edges", blocks, lead)
+    return cases
+
+
+def adversarial_match_lists(seed: int = 0, n: int = (1 << 16) + 3) -> list:
+    """Synthetic inputs of ops/expand.py::expand_matches (B6) with the
+    edges its match lists can have, over a buffer of n bytes (not a whole
+    number of 4-byte words): [(name, buf (n,) uint8, m_off, m_d, m_len
+    (T,) int32, ranges (nblocks, 4) int32)] as numpy arrays. The expanded
+    matches write disjoint ranges at increasing offsets. Cases: matches
+    outside every range and empty ranges; overlapping ranges; d <= 0,
+    len <= 0, off < 0 and off >= n among them, a match running past n and
+    one reaching further back than 32 KiB; sources before byte 0."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+
+    def matches(q, lo_d=1):
+        out = []
+        while True:
+            q += int(rng.integers(0, 24))
+            ln = 258 if rng.random() < 0.2 else int(rng.integers(3, 259))
+            if q + ln > n - 300:
+                return out, q
+            d = int(rng.integers(lo_d, min(q, 32768) + 1)) if q >= lo_d \
+                else lo_d
+            out.append((q, d, ln))
+            q += ln
+
+    def case(name, ms, ranges):
+        buf = rng.integers(0, 256, n, dtype=np.uint8)
+        m = np.asarray(ms, np.int64).reshape(-1, 3).astype(np.int32)
+        return (name, buf, m[:, 0].copy(), m[:, 1].copy(), m[:, 2].copy(),
+                np.asarray([[a, b, 0, 0] for a, b in ranges], np.int32))
+
+    ms, _ = matches(32768)
+    T = len(ms)
+    a, b, c = T // 4, T // 2, 3 * T // 4
+    cases = [case("outside_and_empty_ranges", ms,
+                  [(0, a), (a, a), (b, c), (c, c), (T + 5, T + 9)])]
+    cases.append(case("overlapping_ranges", ms, [(0, b), (a, c), (a, T)]))
+    bad = []
+    for k, m in enumerate(ms):
+        bad.append(m)
+        if k % 7 == 3:
+            q = m[0]
+            bad += [(q, 0, 10), (q, -5, 10), (q, 4, 0), (q, 4, -3),
+                    (-100, 4, 200), (n, 1, 10), (n + 5, 3, 4)]
+    far = (n - 200, 40000, 258)            # runs past n, reaches far back
+    bad.append(far)
+    cases.append(case("bad_fields", bad, [(0, len(bad))]))
+    low = [(q, q + int(rng.integers(1, 300)), int(rng.integers(3, 259)))
+           for q in range(0, 2400, 300)]
+    tail, _ = matches(2400)
+    cases.append(case("source_before_zero", low + tail,
+                      [(0, len(low) + len(tail))]))
+    return cases
+
+
+def adversarial_plans(seed: int = 0, cap: int = 1 << 17) -> list:
+    """Synthetic plans of the v5 resolve (B5), each of `cap` positions:
+    [(name, tok (L, 32) int32, outlen (L,) int32, P (cap,) int32, halo
+    (32768,) uint8)] as numpy arrays; P is the plan the port's plain seed
+    placement and butterfly (ops/expand5.py) give the tokens. Cases: chains
+    of matches across many 16 KiB tile seams; runs of d = 1, then d = 3,
+    over many tiles; d = 32768 matches into the halo; an invalid tail past
+    the bytes produced (in every case but the last); exactly cap bytes
+    produced."""
+    import numpy as np
+    import torch
+    from jdeflate_tpu_torch.ops import expand5 as ex5
+    rng = np.random.default_rng(seed)
+    halo = rng.integers(0, 256, 32768, dtype=np.uint8)
+    half = cap // 2 - 2048
+    cases = []
+    for name, toks in (
+            ("chains_tile_seams", _chains(rng, cap - cap // 16, 32768)),
+            ("d1_d3_runs", [_lit(9)] + [_match(258, 1)] * (half // 258)
+             + [_match(258, 3)] * (half // 258)),
+            ("d32768_halo", [_match(258, 32768)] * 200
+             + _chains(rng, cap - 60000, 32768, 51600)),
+            ("invalid_tail", _chains(rng, cap // 3, 4096)),
+            ("exact_cap", _trim(_chains(rng, cap, 32768), cap))):
+        tok, outlen = _pack_lanes(rng, toks)
+        off, seed_ = ex5.slot_attrs(torch.from_numpy(tok),
+                                    torch.from_numpy(outlen))
+        P = ex5.propagate(ex5.seed_scatter_ref(off, seed_, cap))
+        cases.append((name, tok, outlen, P.numpy(), halo))
     return cases
 
 
@@ -774,20 +1014,37 @@ def anchored_phase(data: bytes, card: str) -> dict:
           f"{kinds.count('stored')} stored batches at err 0, expand1 "
           f"launches {launches}", flush=True)
 
-    # ---- 9b. the kernel against its plain version, and its times, on the
-    # inputs the main path gave it
-    err = 0
-    for buf, mats, _ in inputs[:2]:
-        err = max(err, max_abs_err([ex.expand_matches(buf.clone(), *mats)],
-                                   [ex.expand_matches_ref(buf, *mats)]))
+    # ---- 9b. the kernel against its plain version on every batch's inputs,
+    # the synthetic slots (adversarial_slots) and match lists
+    # (adversarial_match_lists); then its times on the main path's inputs
+    def held(buf, mats):
+        return max_abs_err([ex.expand_matches(buf.clone(), *mats)],
+                           [ex.expand_matches_ref(buf, *mats)])
+
+    err = max(held(buf, mats) for buf, mats, _ in inputs)
+    names = []
+    for name, *slots, cap, first in adversarial_slots(seed=0, scale=1 << 21):
+        b, mats, produced, _ = I._expand1_inputs(
+            *(torch.from_numpy(x).cuda() for x in slots), cap,
+            torch.from_numpy(first).cuda(), first.shape[0] - 1)
+        err = max(err, held(b, mats))
+        names.append(f"{name} {int(produced)} B")
+    for name, *lst in adversarial_match_lists(seed=0):
+        a = [torch.from_numpy(x).cuda() for x in lst]
+        err = max(err, held(a[0], a[1:]))
+        names.append(name)
     if err:
         fail(f"expand1 differs from its plain version: {err}")
-    print(f"expand1 equals its plain version on {min(2, len(inputs))} "
-          "batches (max abs err 0)", flush=True)
-    ms, plain, bound, nmat = [], [], [], []
+    print(f"expand1 equals its plain version on all {len(inputs)} anchored "
+          f"batches and the adversarial cases: {', '.join(names)} (max abs "
+          "err 0)", flush=True)
+    ms, plain, bound, nmat, done = [], [], [], [], []
     for buf, mats, produced in inputs:
-        done = ex.expand_matches(buf.clone(), *mats)  # expanding is idempotent
-        ms.append(gpu_ms(lambda: ex.expand_matches(done, *mats)))
+        # expanding an expanded buffer gives it back (csrc/expand1.cu)
+        done.append(ex.expand_matches(buf.clone(), *mats))
+        ms.append(gpu_ms(lambda: ex.expand_matches(done[-1], *mats)))
+        if not torch.equal(done[-1], ex.expand_matches_ref(buf, *mats)):
+            fail("expand1: expanding an expanded buffer changed it")
         plain.append(gpu_ms(lambda: ex.expand_matches_ref(buf, *mats), 1))
         nm = int(mats[3][:, 1].max())
         nmat.append(nm)
@@ -796,11 +1053,16 @@ def anchored_phase(data: bytes, card: str) -> dict:
         # range read once
         bound.append((I.HALO + 2 * int(produced) + 12 * nm
                       + 16 * mats[3].shape[0]) / HBM_BYTES_PER_S * 1e3)
+    dev = device_ms(lambda: [ex.expand_matches(d, *c[1])
+                             for d, c in zip(done, inputs)],
+                    ("expand1_fill_kernel", "expand1_place_kernel",
+                     "MatchFront"), 3) / len(inputs)
     print(f"expand1 ({card}): {_mean(ms):.3f} ms/launch x {launches} "
           f"(per batch {[round(x, 3) for x in ms]}); plain "
           f"{_mean(plain):.3f} ms; bound {_mean(bound):.5f} ms; "
           f"{sum(nmat)} matches, {sum(ms) * 1e6 / max(sum(nmat), 1):.1f} "
-          "ns/match", flush=True)
+          f"ns/match; the kernels' device time {dev:.4f} ms/launch",
+          flush=True)
     wall, span, walls = timed_runs(
         lambda: dec.decompress(raw, index=index),
         lambda o: o == part or fail("timed anchored decode differs"))
@@ -815,7 +1077,7 @@ def anchored_phase(data: bytes, card: str) -> dict:
             "source": "jdeflate_tpu_torch/csrc/expand1.cu",
             "replaces": "jdeflate_tpu/ops/expand.py:43",
             "launches": launches, "max_abs_err": err,
-            "ms": _mean(ms), "plain_ms": _mean(plain),
+            "ms": _mean(ms), "dev_ms": dev, "plain_ms": _mean(plain),
             "bound_ms": _mean(bound), "bound_by": "bytes",
             "library_ms": None}
 
@@ -1144,8 +1406,10 @@ def main() -> None:
         ntok += int((res[0] != 0).sum())
 
     exp_dev = device_ms(lambda: [ex2.expand_tokens(*a) for a in exp_args],
-                        ("expand_place_kernel", "expand_resolve_kernel"),
+                        ("expand_place_kernel", "TokenFront"),
                         3) / len(exp_args)
+    walk_dev = device_ms(lambda: [wk.walk_cuda(*p[0]) for p in per],
+                         ("walk_kernel",), 3) / len(per)
     wall, span, walls = timed_runs(
         lambda: dec.decompress(raw, index=idx),
         lambda o: o == data or fail("timed decode differs from the corpus"))
@@ -1158,7 +1422,8 @@ def main() -> None:
           f"{launches['walk']} (per batch {[round(x, 3) for x in walk_ms]}); "
           f"plain {statistics.mean(walk_plain):.3f} ms; bound "
           f"{statistics.mean(walk_bound):.4f} ms; "
-          f"{statistics.mean(lanes):.0f} lanes/launch", flush=True)
+          f"{statistics.mean(lanes):.0f} lanes/launch; the kernel's device "
+          f"time {walk_dev:.4f} ms/launch", flush=True)
     print(f"expand2 ({card}): {statistics.mean(exp_ms):.3f} ms/launch x "
           f"{launches['expand2']} (per batch "
           f"{[round(x, 3) for x in exp_ms]}); "
@@ -1178,7 +1443,7 @@ def main() -> None:
          "source": "jdeflate_tpu_torch/csrc/walk.cu",
          "replaces": "jdeflate_tpu/ops/walk.py:266",
          "launches": launches["walk"], "max_abs_err": walk_err,
-         "ms": statistics.mean(walk_ms),
+         "ms": statistics.mean(walk_ms), "dev_ms": walk_dev,
          "plain_ms": statistics.mean(walk_plain),
          "bound_ms": statistics.mean(walk_bound), "bound_by": "bytes",
          "library_ms": None},
@@ -1186,7 +1451,7 @@ def main() -> None:
          "source": "jdeflate_tpu_torch/csrc/expand.cu",
          "replaces": "jdeflate_tpu/ops/expand2.py:47",
          "launches": launches["expand2"], "max_abs_err": exp_err,
-         "ms": statistics.mean(exp_ms),
+         "ms": statistics.mean(exp_ms), "dev_ms": exp_dev,
          "plain_ms": statistics.mean(exp_plain),
          "bound_ms": statistics.mean(exp_bound), "bound_by": "bytes",
          "library_ms": None},

@@ -6,115 +6,83 @@
 // literal byte in 0:8; match dist-1 in 0:15 and phase in 15:24). A literal
 // position takes its byte, a match position the byte at its collapsed
 // source src = p - phase - d + phase % d (always before the match; negative
-// reads the 32 KiB halo), an invalid position 0.
+// reads the 32 KiB halo), an invalid position 0. All out_cap positions are
+// written, the invalid tail past the bytes produced included.
 //
-// The output is one dependency chain: a position may read any byte of the
-// last 32 KiB. So ONE thread block walks the batch's output in 2 KiB steps,
-// in order, and no step is split across blocks. Inside a step:
-//   1. every position loads its plan; literals are staged in shared memory;
-//      each match points at its source, every other position at itself;
-//   2. pointer doubling grounds the chains inside the step: a pointer into
-//      the step jumps to that position's pointer, so after at most
-//      log2(2048) = 11 rounds it is either before the step (a final byte,
-//      written by an earlier step) or a literal/invalid position of the
-//      step (a staged value);
-//   3. every position gathers its byte from there and writes it.
-// This is the TPU kernel's algorithm without its MXU one-hot gathers: Hopper
-// has real gathers, and the step's pointers live in shared memory.
+// What bounds it: the dependency chains, not bytes (read P once, write the
+// output once is about a microsecond). The first kernel walked the output
+// in 2 KiB steps on one SM, about 11 barrier-separated doubling rounds a
+// step. This one is a front end on the ordered-tile resolve
+// (tile_resolve.cuh), which spreads 16 KiB tiles over every SM: PlanFront
+// computes each position's entry straight from its plan (~byte for a
+// literal, an invalid position or a halo byte; else the source), so there
+// is no place kernel, and the map only holds the states tiles publish.
 //
-// What bounds it: latency. Each step costs a few block-wide barriers and
-// dependent reads, and the 2 KiB steps run one after another on one SM,
-// while the byte bound (read P once, write the output once) is a few
-// microseconds. Spreading independent steps over SMs is later work.
+// A source before the halo (src < -32768, only from a malformed plan) reads
+// 0, as in the first kernel and the TPU kernel's zeroed stage rows.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "tile_resolve.cuh"
+
 namespace {
 
 constexpr int kHalo = 32768;
-constexpr int kStep = 2048;
-constexpr int kThreads = 1024;
-constexpr int kPer = kStep / kThreads;   // positions per thread
-constexpr int kRounds = 11;              // log2(kStep)
 constexpr int kValid = 1 << 25;
 constexpr int kLit = 1 << 24;
 
-__global__ void __launch_bounds__(kThreads)
-resolve_kernel(const int* __restrict__ P, const uint8_t* __restrict__ halo,
-               uint8_t* out, int out_cap) {
-  __shared__ int ptr[kStep];
-  __shared__ uint8_t val[kStep];
-  const int t = threadIdx.x;
-  for (int sbase = 0; sbase < out_cap; sbase += kStep) {
-    int kind[kPer];            // 0 invalid, 1 literal, 2 match
+struct PlanFront {
+  const int* P;
+  const uint8_t* halo;
+  int64_t n;
+
+  __device__ __forceinline__ int64_t count() const { return n; }
+
+  __device__ __forceinline__ void entries(int64_t j0, int64_t,
+                                          int e[4]) const {
+    int pv[4];
+    if (j0 + 4 <= n) {
+      const int4 v = __ldg(reinterpret_cast<const int4*>(P + j0));
+      pv[0] = v.x;
+      pv[1] = v.y;
+      pv[2] = v.z;
+      pv[3] = v.w;
+    } else {
 #pragma unroll
-    for (int k = 0; k < kPer; ++k) {
-      const int j = t + k * kThreads;
-      const int p = sbase + j;
-      const int pv = p < out_cap ? __ldg(P + p) : 0;
-      const bool valid = (pv & kValid) != 0;
-      const bool lit = valid && (pv & kLit) != 0;
-      kind[k] = valid ? (lit ? 1 : 2) : 0;
-      int cur = p;
-      if (kind[k] == 2) {
-        const int d = (pv & 0x7FFF) + 1;
-        const int phase = (pv >> 15) & 0x1FF;
-        cur = p - phase - d + phase % d;
-      }
-      ptr[j] = cur;
-      val[j] = lit ? (uint8_t)(pv & 0xFF) : 0;
-    }
-    __syncthreads();
-    for (int r = 0; r < kRounds; ++r) {
-      int nxt[kPer];
-      int changed = 0;
-#pragma unroll
-      for (int k = 0; k < kPer; ++k) {
-        const int j = t + k * kThreads;
-        const int c = ptr[j];
-        nxt[k] = c;
-        if (c >= sbase && c < sbase + kStep) {
-          nxt[k] = ptr[c - sbase];
-          changed |= nxt[k] != c;
-        }
-      }
-      // every read of this round happens before any write
-      const int any = __syncthreads_or(changed);
-#pragma unroll
-      for (int k = 0; k < kPer; ++k) ptr[t + k * kThreads] = nxt[k];
-      __syncthreads();
-      if (!any) break;
+      for (int i = 0; i < 4; ++i) pv[i] = j0 + i < n ? __ldg(P + j0 + i) : 0;
     }
 #pragma unroll
-    for (int k = 0; k < kPer; ++k) {
-      const int j = t + k * kThreads;
-      const int p = sbase + j;
-      if (p >= out_cap) continue;
-      uint8_t v = val[j];
-      if (kind[k] == 2) {
-        const int c = ptr[j];
-        if (c >= sbase)
-          v = val[min(c - sbase, kStep - 1)];
-        else if (c >= 0)
-          v = out[c];                   // final: written by an earlier step
-        else
-          v = c >= -kHalo ? halo[c + kHalo] : 0;
+    for (int i = 0; i < 4; ++i) {
+      const int v = pv[i];
+      if (!(v & kValid)) {
+        e[i] = ~0;
+      } else if (v & kLit) {
+        e[i] = ~(v & 0xFF);
+      } else {
+        const int d = (v & 0x7FFF) + 1;
+        const int phase = (v >> 15) & 0x1FF;
+        const int src = (int)(j0 + i) - phase - d + phase % d;
+        e[i] = src >= 0 ? src
+                        : (src >= -kHalo ? ~(int)halo[src + kHalo] : ~0);
       }
-      out[p] = v;
     }
-    // this step's bytes are visible to the next step's reads
-    __syncthreads();
   }
-}
+};
 
 }  // namespace
 
+// P: int32 (out_cap,), 16-byte aligned; map: int32, at least tiles * kTile
+// entries; sync: int32, zeroed, at least 1 + tiles entries, where tiles =
+// ceil(out_cap / kTile) (tile_resolve.cuh).
 extern "C" int jd_expand5_resolve(const void* P, const void* halo, void* out,
-                                  int64_t out_cap, void* stream) {
-  if (out_cap <= 0) return 0;
-  if (out_cap > (int64_t)0x7FFFFFFF - kStep) return (int)cudaErrorInvalidValue;
-  resolve_kernel<<<1, kThreads, 0, (cudaStream_t)stream>>>(
-      (const int*)P, (const uint8_t*)halo, (uint8_t*)out, (int)out_cap);
-  return (int)cudaGetLastError();
+                                  int64_t out_cap, void* map, int64_t map_len,
+                                  void* sync, int64_t sync_len,
+                                  void* stream) {
+  if (!tile_resolve::scratch_ok(out_cap, map_len, sync_len) ||
+      ((uintptr_t)P & 15) || ((uintptr_t)out & 3))
+    return (int)cudaErrorInvalidValue;
+  return (int)tile_resolve::launch_resolve(
+      PlanFront{(const int*)P, (const uint8_t*)halo, out_cap}, (int*)map,
+      (uint8_t*)out, (int*)sync, out_cap, (cudaStream_t)stream);
 }

@@ -2,14 +2,16 @@
 
 Each source is compiled at first use into a shared library with a plain C
 interface, ``_build/lib<name>_<source hash>.so`` inside the package, and
-loaded with ctypes. Nothing here runs at import time: the CPU tests import
-every module on machines without nvcc.
+loaded with ctypes. The hash covers the source and every csrc/*.cuh header
+it includes, so an edited header rebuilds its users. Nothing here runs at
+import time: the CPU tests import every module on machines without nvcc.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -19,6 +21,9 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
+
+TILE = 16384          # positions per tile of the resolve, tile_resolve.cuh
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"/]+\.cuh)"', re.M)
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -32,9 +37,21 @@ def _nvcc() -> str:
 
 
 def _so_path(name: str) -> str:
-    with open(os.path.join(CSRC, name + ".cu"), "rb") as f:
-        h = hashlib.sha256(f.read()).hexdigest()[:16]
-    return os.path.join(BUILD, f"lib{name}_{h}.so")
+    """Where csrc/<name>.cu builds to: the name of the library holds a hash
+    of the source and of every csrc header it includes, directly or through
+    another header."""
+    h = hashlib.sha256()
+    todo, seen = [name + ".cu"], set()
+    while todo:
+        f = todo.pop()
+        if f in seen:
+            continue
+        seen.add(f)
+        with open(os.path.join(CSRC, f), "rb") as fh:
+            text = fh.read()
+        h.update(f.encode() + b"\0" + text)
+        todo += sorted(m.decode() for m in _INCLUDE.findall(text))
+    return os.path.join(BUILD, f"lib{name}_{h.hexdigest()[:16]}.so")
 
 
 def build(names) -> dict[str, tuple[float, str]]:
@@ -98,6 +115,16 @@ def check_tensor(t, name: str, dtype, dev, shape=None) -> None:
     if shape is not None and tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: want shape {tuple(shape)}, got "
                          f"{tuple(t.shape)}")
+
+
+def resolve_scratch(n: int, dev, lead: int = 0):
+    """Scratch of the ordered-tile resolve over n positions: the map (int32,
+    whole tiles) and the sync words (int32, zeroed on every call): `lead`
+    words of the caller's, then the ticket and one flag per tile."""
+    import torch
+    tiles = -(-n // TILE)
+    return (torch.empty(tiles * TILE, dtype=torch.int32, device=dev),
+            torch.zeros(lead + 1 + tiles, dtype=torch.int32, device=dev))
 
 
 def stream_ptr():

@@ -2,17 +2,19 @@
 
 Port of jdeflate_tpu/ops/expand.py. Literals are placed beforehand by one
 scatter; the matches, compacted to stream order, are then expanded in place
-block by block, in order, because a block's 32 KiB window reaches into the
-output of the blocks before it (like the reference's ring window,
-inflator.c:616-675). Byte i of a match (off, d, len) copies byte
-off - d + (i mod d), which precedes the match, so overlapping copies
-(d < len) need no doubling.
+with the contract of the reference's block-by-block, in-order expansion: a
+block's 32 KiB window reaches into the output of the blocks before it
+(like the reference's ring window, inflator.c:616-675). Byte i of a match
+(off, d, len) copies byte off - d + (i mod d), which precedes the match,
+so overlapping copies (d < len) need no doubling.
 
 Two implementations of one contract:
   * expand_matches_ref - plain PyTorch (a cover map and a dependency-doubling
     resolve), any device;
-  * expand_matches - the CUDA kernel csrc/expand1.cu on a CUDA tensor, the
-    plain version on a CPU tensor.
+  * expand_matches - the CUDA kernels of csrc/expand1.cu on a CUDA tensor
+    (each match's collapsed sources placed in a map, then the ordered-tile
+    resolve of csrc/tile_resolve.cuh over every SM), the plain version on a
+    CPU tensor.
 """
 from __future__ import annotations
 
@@ -84,13 +86,16 @@ def expand_matches(buf: torch.Tensor, m_off: torch.Tensor, m_d: torch.Tensor,
     m_off/m_d/m_len: (T,) i32 matches in stream order (absolute buffer
     offset, distance, length). ranges: (nblocks, 4) i32 [t0, t1, out_start,
     0] per block: block b expands matches [t0, t1), blocks in order.
-    On a CUDA tensor csrc/expand1.cu rewrites `buf` and returns it; on a
-    CPU tensor the plain version returns a new tensor. Counts its kernel
-    launches in expand_matches.launches."""
+    Expanded matches must write disjoint byte ranges at increasing offsets
+    (stream order, as the anchored decode builds them; csrc/expand1.cu).
+    On a CUDA tensor (buf 4-byte aligned) csrc/expand1.cu rewrites `buf`
+    and returns it; on a CPU tensor the plain version returns a new
+    tensor. Counts its kernel launches in expand_matches.launches."""
     if buf.device.type == "cpu":
         return expand_matches_ref(buf, m_off, m_d, m_len, ranges)
     from . import _cuda
     dev = buf.device
+    n = buf.shape[0]
     T = m_off.shape[0]
     nb = ranges.shape[0]
     _cuda.check_tensor(buf, "buf", torch.uint8, dev)
@@ -100,11 +105,16 @@ def expand_matches(buf: torch.Tensor, m_off: torch.Tensor, m_d: torch.Tensor,
     fn = _cuda.entry("expand1", "jd_expand1",
                      [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-                      ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
+                      ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                      ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
+                      ctypes.c_void_p])
+    # the furthest byte a match writes, then the resolve's ticket and flags
+    srcmap, sync = _cuda.resolve_scratch(n, dev, lead=1)
     with torch.cuda.device(dev):
-        rc = fn(buf.data_ptr(), buf.shape[0], m_off.data_ptr(),
-                m_d.data_ptr(), m_len.data_ptr(), T, ranges.data_ptr(), nb,
-                _cuda.stream_ptr())
+        rc = fn(buf.data_ptr(), n, m_off.data_ptr(), m_d.data_ptr(),
+                m_len.data_ptr(), T, ranges.data_ptr(), nb,
+                srcmap.data_ptr(), srcmap.numel(), sync.data_ptr(),
+                sync.numel(), _cuda.stream_ptr())
     _cuda.check(rc, "expand1 kernel launch")
     expand_matches.launches += 1
     return buf

@@ -7,11 +7,11 @@ Two implementations of one contract (the JAX package's ops/expand2.py):
     plain version on a CPU tensor.
 
 On the card a place kernel writes each output position's collapsed source
-(or literal byte) into a map, and a resolve kernel grounds the map in
-16 KiB tiles spread over every SM: pointer doubling inside a tile, then
-pointers into earlier tiles followed through the states those tiles
-publish, so no tile waits for another to finish (see the note in
-csrc/expand.cu).
+(or literal byte) into a map, and the ordered-tile resolve shared with the
+v1 and v5 engines grounds the map in 16 KiB tiles spread over every SM:
+pointer doubling inside a tile, then pointers into earlier tiles followed
+through the states those tiles publish, so no tile waits for another to
+finish (see the notes in csrc/expand.cu and csrc/tile_resolve.cuh).
 """
 from __future__ import annotations
 
@@ -20,11 +20,12 @@ import ctypes
 import torch
 
 from ..formats import constants as C
+from . import _cuda
 from . import decode as dk
 from . import walk as wk
 
 HALO = C.WINDOW_SIZE                  # 32768
-TILE = 16384                          # resolve tile, kTile in csrc/expand.cu
+TILE = _cuda.TILE                     # positions per resolve tile
 
 
 def token_slots(tok_lm: torch.Tensor):
@@ -66,7 +67,6 @@ def expand_tokens(tok_lm: torch.Tensor, outlen: torch.Tensor,
     the host. Counts its kernel launches in expand_tokens.launches."""
     if tok_lm.device.type == "cpu":
         return expand_tokens_ref(tok_lm, outlen, halo, out_cap)
-    from . import _cuda
     dev = tok_lm.device
     L = tok_lm.shape[0]
     if laneoff is None:
@@ -82,12 +82,9 @@ def expand_tokens(tok_lm: torch.Tensor, outlen: torch.Tensor,
                       ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
                       ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
                       ctypes.c_int64, ctypes.c_void_p])
-    tiles = -(-out_cap // TILE)
     buf = torch.empty(HALO + out_cap, dtype=torch.uint8, device=dev)
     buf[:HALO] = halo
-    srcmap = torch.empty(tiles * TILE, dtype=torch.int32, device=dev)
-    # the tile ticket, then each tile's "states published" flag
-    sync = torch.zeros(1 + tiles, dtype=torch.int32, device=dev)
+    srcmap, sync = _cuda.resolve_scratch(out_cap, dev)
     produced = outlen.sum(dtype=torch.int64)
     with torch.cuda.device(dev):
         rc = fn(tok_lm.data_ptr(), laneoff.data_ptr(), L, srcmap.data_ptr(),

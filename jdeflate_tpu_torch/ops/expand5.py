@@ -1,4 +1,4 @@
-"""Token-expansion engine v5: per-position plan, then a stepwise resolve.
+"""Token-expansion engine v5: per-position plan, then a resolve.
 
 Port of jdeflate_tpu/ops/expand5.py, selected by JDT_EXPAND=5. The
 pipeline, for one batch of lane-major walk tokens:
@@ -11,9 +11,10 @@ pipeline, for one batch of lane-major walk tokens:
   3. butterfly propagate (plain): every output position learns its covering
      token's pack and its phase within it, in 9 shift/select stages (a
      DEFLATE item is at most 258 bytes).
-  4. resolve (kernel csrc/expand5resolve.cu): sequential 2 KiB steps over
-     the output; chains inside a step ground by pointer doubling on the
-     collapsed-source map, then every position gathers its byte.
+  4. resolve (kernel csrc/expand5resolve.cu): every position's entry
+     (a byte, or its collapsed source) straight from its plan, grounded by
+     the ordered-tile resolve shared with the other engines (16 KiB tiles
+     over every SM, csrc/tile_resolve.cuh).
 
 The collapsed source rule: a position p inside a match (off, d, len) reads
 from src = off - d + (p - off) % d, which always precedes the match, so
@@ -44,11 +45,8 @@ from ..formats import constants as C
 from . import walk as wk
 
 HALO = C.WINDOW_SIZE                  # 32768
-STEP = 2048        # resolve step bytes
 V_VALID = 1 << 25
 V_LIT = 1 << 24
-DBL_ROUNDS = (STEP - 1).bit_length()  # chains inside a step are at most
-#   STEP deep, so log2(STEP) pointer doublings always ground them
 
 S_SLICE = 8        # slots per lane seeded by the fast path
 SREG = 4096        # reference seed region (output bytes)
@@ -130,7 +128,7 @@ def seed_scatter_ref(off, seed, n: int):
 
 def resolve_ref(P, halo, out_cap: int):
     """Plain resolve: global fixpoint value iteration (converges in
-    max-chain-depth rounds; the kernel does it per 2 KiB step). The
+    max-chain-depth rounds; the kernel doubles pointers instead). The
     dependency graph is acyclic (every source precedes its position), so
     the first round that changes nothing has reached the unique result."""
     is_lit, lit, src, is_m = plan_fields(P, out_cap)
@@ -275,7 +273,10 @@ def resolve(P: torch.Tensor, halo: torch.Tensor, out_cap: int):
     tensor, resolve_ref on a CPU tensor. Returns (out (out_cap,) u8, err).
     err is always 0, as in the reference (its resolve kernel's step returns
     err unchanged, jdeflate_tpu/ops/expand5.py:396-472); it is kept for the
-    contract. Counts its kernel launches in resolve.launches."""
+    contract. On the card the kernel is a front end on the ordered-tile
+    resolve (csrc/tile_resolve.cuh) over every SM; the map is scratch for
+    the states its tiles publish, and P (16-byte aligned) is only read.
+    Counts its kernel launches in resolve.launches."""
     zero = torch.zeros((), dtype=_I32, device=P.device)
     if P.device.type == "cpu":
         return resolve_ref(P, halo, out_cap), zero
@@ -285,11 +286,14 @@ def resolve(P: torch.Tensor, halo: torch.Tensor, out_cap: int):
     _cuda.check_tensor(halo, "halo", torch.uint8, dev, (HALO,))
     fn = _cuda.entry("expand5resolve", "jd_expand5_resolve",
                      [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                      ctypes.c_int64, ctypes.c_void_p])
+                      ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
+                      ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p])
     out = torch.empty(out_cap, dtype=torch.uint8, device=dev)
+    srcmap, sync = _cuda.resolve_scratch(out_cap, dev)
     with torch.cuda.device(dev):
         rc = fn(P.data_ptr(), halo.data_ptr(), out.data_ptr(), out_cap,
-                _cuda.stream_ptr())
+                srcmap.data_ptr(), srcmap.numel(), sync.data_ptr(),
+                sync.numel(), _cuda.stream_ptr())
     _cuda.check(rc, "expand5 resolve kernel launch")
     resolve.launches += 1
     return out, zero
