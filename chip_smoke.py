@@ -7,18 +7,20 @@ Run from the repository root with no arguments:
 It builds the six CUDA kernels from jdeflate_tpu_torch/csrc (all nvcc
 processes at once), then drives the port's paths on a 32 MiB Silesia-like
 corpus. Decode: the corpus compressed by zlib at level 6, indexed by
-RawInflater.build_index and decoded on the GPU through the window-walk and
-token-expansion kernels, raw and gzip-framed (a batch may err only where
-its last pseudo-entry's word segment clamps, ROADMAP C5); a tampered window
-anchor must err and fall back to the native decoder. Encode:
+RawInflater.build_index and decoded on the GPU through the window-walk
+kernel (with the decode's checks in its epilogue) and the token-expansion
+kernel, raw and gzip-framed (a batch may err only where its last
+pseudo-entry's word segment clamps, ROADMAP C5, and the err decisions must
+be the reference's, E2_ERRS); a tampered window anchor must err and fall
+back to the native decoder. Encode:
 compress_with_index at level 6 with 64 KiB blocks in batches of 16 (the
 bench's round trip) through the match-walk kernel; the gzip stream must
 inflate in zlib and in the port's decoder with every windowed batch at err
 0, and a FEXTRA self-indexed member (of the first MiB: the field holds at
 most 64 KiB of index) must decode with no index handed over. v5 decode: the
-same 32 MiB decode with JDT_EXPAND=5, through the seed and resolve kernels;
-its errs must be the walk's plus the reference's seed-window and spill
-limits (ROADMAP C3). Anchored decode: the first 8 MiB encoded by the port at
+same 32 MiB decode with JDT_EXPAND=5, through the walk, seed-plane and
+resolve kernels; its errs must be the walk's plus the reference's
+seed-window and spill limits (ROADMAP C3, V5_ERRS). Anchored decode: the first 8 MiB encoded by the port at
 level 6, re-indexed with symbol anchors taken from the symbol lattice the
 port computes on the card, through the v1 match-expansion kernel, every
 batch at err 0. Dense decode: the first 8 MiB compressed by zlib, indexed
@@ -26,19 +28,23 @@ with block offsets only (its segmented orbits err in both packages,
 ROADMAP C8), and a 1 MiB dense decode held against the CPU. Each kernel is
 held against its plain PyTorch version on the main path's inputs, the
 encoder's integer stages on the card against the same stages on the CPU,
-and everything is timed. The token expansion (B2) is held to its plain
+and everything is timed. The walk (B1) is held to its plain version on
+every windowed batch (tokens and meta; lane bytes, lane offsets and err),
+on the batches a tampered anchor changes and on synthetic changes to three
+batches (adversarial_windows). The token expansion (B2) is held to its plain
 version and to the corpus on every windowed batch at err 0, on synthetic
 adversarial token streams (adversarial_tokens) and over three runs of one
 batch; the match walk (B3) on all encode batches and on synthetic edge
-cases (adversarial_walks); the v5 seed (B4) and resolve (B5) on every
-windowed batch, the resolve also on synthetic plans (adversarial_plans);
+cases (adversarial_walks); the v5 seed plane (B4) and resolve (B5) on
+every windowed batch and on synthetic plans (adversarial_plans);
 the v1 match expansion (B6) on every anchored batch, on synthetic token
 slots (adversarial_slots) and match lists (adversarial_match_lists). Any
 failure exits non-zero. The last line is {"ok": true, "device": {...}};
 the line with {"kernels": [...]} before it lists every kernel with its
 launches, error against the plain version, time (CUDA events around
 back-to-back calls, and its kernels' own device time from the profiler),
-bound, the plain version's time and the library call's time.
+bound, the plain version's time and the library call's time; the profile
+lines give each path's device busy time and its scan kernels' total.
 
 Without a CUDA device it exits non-zero and prints no result.
 """
@@ -59,6 +65,12 @@ DENSE_MB = 8
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate (data sheet)
 BATCH = dict(max_batch_bits=1 << 25, max_batch_blocks=256,
              max_batch_out=1 << 23)
+# the reference's err decisions on the 32 MiB corpus, (windowed batch, err)
+# of each logged batch that errs: engine 2 errs where its last
+# pseudo-entry's segment clamps (ROADMAP C5), v5 at its seed window first
+# (ROADMAP C3); each decode goes native from there
+E2_ERRS = [(27, 64)]
+V5_ERRS = [(0, 1)]
 
 
 def fail(msg: str) -> None:
@@ -189,9 +201,12 @@ def profile_run(what: str, fn, span_s: float) -> None:
         print(f"profile {what}: the profiler saw no device time", flush=True)
         return
     top = sorted(rows, reverse=True)[:6]
+    scans = [r for r in rows if "scan" in r[2]]
     print(f"profile {what}: device busy {busy:.1f} ms of the "
           f"{span_s * 1e3:.1f} ms span ({100 * busy / (span_s * 1e3):.1f}%); "
-          f"{sum(r[1] for r in rows)} device events; top: "
+          f"{sum(r[1] for r in rows)} device events; scan kernels "
+          f"{sum(r[0] for r in scans):.1f} ms x{sum(r[1] for r in scans)}; "
+          "top: "
           + "; ".join(f"{k[:48]} x{c} {ms:.1f} ms" for ms, c, k in top),
           flush=True)
 
@@ -402,6 +417,7 @@ def v5_phase(dec, raw: bytes, data: bytes, idx: dict, e2_errs: list,
     """Phase 8: the v5 expansion engine (JDT_EXPAND=5) on the 32 MiB
     decode. Returns the seed and resolve kernels' entries of the kernels
     line."""
+    import numpy as np
     import torch
     from jdeflate_tpu_torch.codec import inflate as I
     from jdeflate_tpu_torch.ops import expand5 as ex5
@@ -412,13 +428,13 @@ def v5_phase(dec, raw: bytes, data: bytes, idx: dict, e2_errs: list,
     try:
         # ---- 8a. main path: one decompress, counts zeroed just before
         dec.capture_calls = True
-        ex5.seed_scatter.launches = 0
+        ex5.seed_plane.launches = 0
         ex5.resolve.launches = 0
         t0 = time.perf_counter()
         out = dec.decompress(raw, index=idx)
         torch.cuda.synchronize()
         first_s = time.perf_counter() - t0
-        launches = {"seed": ex5.seed_scatter.launches,
+        launches = {"seed": ex5.seed_plane.launches,
                     "resolve": ex5.resolve.launches}
         stats, calls = list(dec.last_stats), list(dec.last_calls)
         dec.capture_calls = False
@@ -434,14 +450,15 @@ def v5_phase(dec, raw: bytes, data: bytes, idx: dict, e2_errs: list,
         # own checks (engine 2's err of the same batch)
         per = []
         for words, metas, row, halo, npe, nb, oc, ww in calls:
-            args = I._walk_inputs(words, metas[row], npe, nb, ww)[0]
-            tok, outlen = wk.walk_cuda(*args)[:2]
-            off, seed = ex5.slot_attrs16(tok, outlen)
+            tok, _, outlen, lo = wk.walk_checked(*I._walk_inputs(
+                words, metas[row], npe, nb, ww))[:4]
+            S16, off, seed = ex5.seed_plane(tok, lo, oc)
             werr = int(ex5.seed_window_err(off, seed, oc))
-            serr = int(ex5.spill_pass(tok, outlen, torch.zeros(
-                oc, dtype=torch.int32, device="cuda"), oc)[1])
-            per.append((tok, outlen, halo, oc, off, seed, werr, serr))
+            serr = int(ex5.spill_pass(tok, lo, S16, oc)[1])
+            per.append((tok, outlen, halo, oc, lo, S16, werr, serr))
         logged = [e for k, _, e in stats if k == "win"]
+        if [(i, e) for i, e in enumerate(logged) if e] != V5_ERRS:
+            fail(f"v5 err decisions {logged} != the reference's {V5_ERRS}")
         want = [e2 + p[6] + p[7] for e2, p in zip(e2_errs, per)]
         if logged != want[:len(logged)]:
             fail(f"v5 errs {logged} != walk + seed window + spill "
@@ -462,14 +479,14 @@ def v5_phase(dec, raw: bytes, data: bytes, idx: dict, e2_errs: list,
               f"native re-decode {native}", flush=True)
 
         # ---- 8c. each kernel against its plain version on every batch,
-        # and the resolve on the synthetic plans (adversarial_plans)
+        # and on the synthetic plans' tokens (adversarial_plans): the seed
+        # plane and slot arrays, and the resolve
         seed_err = res_err = 0
         plans = []
-        for tok, outlen, halo, oc, off, seed, _, _ in per:
-            S16 = ex5.seed_scatter(off, seed, oc)
+        for tok, outlen, halo, oc, lo, S16, _, _ in per:
             seed_err = max(seed_err, max_abs_err(
-                [S16], [ex5.seed_scatter_ref(off, seed, oc)]))
-            S16f, _ = ex5.spill_pass(tok, outlen, S16, oc)
+                ex5.seed_plane(tok, lo, oc), ex5.seed_plane_ref(tok, lo, oc)))
+            S16f, _ = ex5.spill_pass(tok, lo, S16, oc)
             P = ex5.propagate(ex5.seed16_to_plan(S16f)).contiguous()
             plans.append(P)
             res_err = max(res_err, max_abs_err(
@@ -479,8 +496,16 @@ def v5_phase(dec, raw: bytes, data: bytes, idx: dict, e2_errs: list,
             fail(f"v5 kernels differ from plain versions: seed {seed_err}, "
                  f"resolve {res_err}")
         names = []
-        for name, _, outlen, P, halo in adversarial_plans(seed=0,
-                                                          cap=1 << 21):
+        for name, tok, outlen, P, halo in adversarial_plans(seed=0,
+                                                            cap=1 << 21):
+            tok = torch.from_numpy(tok).cuda()
+            lo = torch.from_numpy(np.cumsum(outlen, dtype=np.int64)
+                                  - outlen).cuda()
+            e = max_abs_err(ex5.seed_plane(tok, lo, P.shape[0]),
+                            ex5.seed_plane_ref(tok, lo, P.shape[0]))
+            if e:
+                fail(f"v5 seed plane adversarial plan {name}: {e} max abs "
+                     "err")
             P, halo = torch.from_numpy(P).cuda(), torch.from_numpy(halo).cuda()
             o, e = ex5.resolve(P, halo, P.numel())
             r = ex5.resolve_ref(P, halo, P.numel())
@@ -489,9 +514,9 @@ def v5_phase(dec, raw: bytes, data: bytes, idx: dict, e2_errs: list,
                      f"{max_abs_err([o], [r])} max abs err")
             names.append(f"{name} {int(outlen.sum())} B")
         print(f"v5 seed and resolve kernels equal their plain versions on all "
-              f"{nwin} batches (max abs err 0); the resolve on the "
-              f"adversarial plans of {1 << 21} positions: {', '.join(names)}",
-              flush=True)
+              f"{nwin} batches (max abs err 0; the seed plane with its slot "
+              f"arrays), and on the adversarial plans of {1 << 21} "
+              f"positions: {', '.join(names)}", flush=True)
 
         # ---- 8c'. every batch's card output against the corpus slice it
         # covers: the decode above is native from the first erring batch,
@@ -522,21 +547,23 @@ def v5_phase(dec, raw: bytes, data: bytes, idx: dict, e2_errs: list,
         # ---- 8d. times
         sd_ms, sd_plain, sd_lib, sd_bound = [], [], [], []
         rs_ms, rs_plain, rs_bound = [], [], []
-        for k, ((tok, outlen, halo, oc, off, seed, _, _), P) in enumerate(
+        for k, ((tok, outlen, halo, oc, lo, _, _, _), P) in enumerate(
                 zip(per, plans)):
-            n = off.numel()
-            sd_ms.append(gpu_ms(lambda: ex5.seed_scatter(off, seed, oc)))
+            sd_ms.append(gpu_ms(lambda: ex5.seed_plane(tok, lo, oc)))
             sd_plain.append(gpu_ms(
-                lambda: ex5.seed_scatter_ref(off, seed, oc), 1))
+                lambda: ex5.seed_plane_ref(tok, lo, oc), 1))
+            _, off, seed = ex5.seed_plane(tok, lo, oc)
             lidx = torch.where((seed != 0) & (off < oc), off,
                                torch.full_like(off, oc)).long()
             sd_lib.append(gpu_ms(lambda: torch.zeros(
                 oc + 1, dtype=torch.int32, device="cuda").scatter_reduce_(
                 0, lidx, seed, "amax")[:oc]))
-            # least bytes: each slot's offset and seed read once, each seed
-            # placed written once
-            placed = int(((seed != 0) & (off >= 0) & (off < oc)).sum())
-            sd_bound.append((8 * n + 4 * placed) / HBM_BYTES_PER_S * 1e3)
+            # least bytes: the fast slice of the tokens (and the last
+            # lane's row) and laneoff read once; the whole plane and the
+            # slot arrays written once
+            n = off.numel()
+            sd_bound.append((4 * n + 4 * wk.S_SLOTS + 8 * lo.numel()
+                             + 4 * oc + 8 * n) / HBM_BYTES_PER_S * 1e3)
             rs_ms.append(gpu_ms(lambda: ex5.resolve(P, halo, oc), 1))
             if k < 4:
                 rs_plain.append(gpu_ms(lambda: ex5.resolve_ref(P, halo, oc),
@@ -546,8 +573,9 @@ def v5_phase(dec, raw: bytes, data: bytes, idx: dict, e2_errs: list,
             produced = int(outlen.sum())
             rs_bound.append((4 * produced + I.HALO + produced)
                             / HBM_BYTES_PER_S * 1e3)
-        sd_dev = device_ms(lambda: [ex5.seed_scatter(p[4], p[5], p[3])
-                                    for p in per], ("seed_kernel",), 3) / nwin
+        sd_dev = device_ms(lambda: [ex5.seed_plane(p[0], p[4], p[3])
+                                    for p in per], ("seed_plane_kernel",),
+                           3) / nwin
         rs_dev = device_ms(lambda: [ex5.resolve(P, p[2], p[3])
                                     for p, P in zip(per, plans)],
                            ("PlanFront",), 3) / nwin
@@ -922,6 +950,86 @@ def adversarial_plans(seed: int = 0, cap: int = 1 << 17) -> list:
     return cases
 
 
+def adversarial_windows(meta, npe: int, ne: int, seed: int = 0) -> list:
+    """Edge cases of the walk's checks (B1's epilogue: the exit chain, the
+    lane offsets, the far-offset check), as changes to one real windowed
+    batch's meta row [word_lo, hist, pe_word0(npe), pe_tab(npe),
+    alanes(npe*1024), ll(ne*288), dl(ne*32)] (numpy int32, as
+    codec/inflate.py::_walk_inputs unpacks it): [(name, meta, ne)]. Cases:
+    hist 0 (every match reaching before the batch is far) and 2^30 (none
+    is); every other pseudo-entry's tree given a new id holding the same
+    tree (the chain then ends at each pseudo-entry instead of running into
+    the next one's head); a pseudo-entry with no anchor; anchors moved one
+    bit, among them a pseudo-entry's head; anchors 32-63 bits into their
+    window (active for the chain, idle for the walk); a negative word of a
+    pseudo-entry (its anchor base clamps at 0); the last pseudo-entry's
+    words past the word window (its segment clamps, ROADMAP C5)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    PE = 1024
+    meta = np.asarray(meta, np.int32)
+    o_w, o_t, o_a = 2, 2 + npe, 2 + 2 * npe
+    o_ll = o_a + npe * PE
+    end = o_ll + ne * 320
+    al = meta[o_a:o_ll].reshape(npe, PE)
+    act = np.argwhere(al >= 0)
+    cases = []
+
+    def add(name, m, n_e=ne):
+        cases.append((name, m, n_e))
+
+    for name, h in (("hist_0", 0), ("hist_2p30", 1 << 30)):
+        m = meta.copy()
+        m[1] = h
+        add(name, m)
+    # a new tree id for every odd pseudo-entry: the trees, then ll and dl
+    ll = meta[o_ll:o_ll + ne * 288].reshape(ne, 288)
+    dl = meta[o_ll + ne * 288:end].reshape(ne, 32)
+    tab = meta[o_t:o_t + npe]
+    odd = np.arange(npe) % 2 == 1
+    new_ll, new_dl = [ll], [dl]
+    for p in np.nonzero(odd)[0]:
+        new_ll.append(ll[tab[p]][None])
+        new_dl.append(dl[tab[p]][None])
+    relabel = tab.copy()
+    relabel[odd] = ne + np.arange(int(odd.sum()))
+    m = np.concatenate([meta[:o_t], relabel, meta[o_a:o_ll],
+                        np.concatenate(new_ll).reshape(-1),
+                        np.concatenate(new_dl).reshape(-1), meta[end:]])
+    add("tree_relabel", m, ne + int(odd.sum()))
+    live = [p for p in range(npe) if (al[p] >= 0).any()]
+    runs = [p for p in live[1:] if p - 1 in live and tab[p - 1] == tab[p]]
+    m = meta.copy()
+    p = runs[len(runs) // 2] if runs else live[len(live) // 2]
+    m[o_a + p * PE:o_a + (p + 1) * PE] = -1
+    add("empty_pe", m)
+    m = meta.copy()
+    heads = [p * PE + int(np.argmax(al[p] >= 0)) for p in runs]
+    pick = rng.choice(len(act), min(8, len(act)), replace=False)
+    for i in [int(act[k][0]) * PE + int(act[k][1]) for k in pick] + heads[:2]:
+        m[o_a + i] += 1
+    add("anchor_shift", m)
+    m = meta.copy()
+    flat = m[o_a:o_ll]
+    for k in rng.choice(len(act) - 1, min(16, len(act) - 1), replace=False):
+        (p, j), (p2, j2) = act[k], act[k + 1]
+        if p2 == p and j2 == j + 1:         # the next window's anchor
+            flat[p * PE + j] = flat[p * PE + j2]
+    add("late_anchors", m)
+    m = meta.copy()
+    m[o_w + live[len(live) // 3]] = -5
+    add("negative_pe_word0", m)
+    # the last pseudo-entry with anchors moved 2^16 words on, anchors and
+    # all: only its segment start clamps into the word window
+    m = meta.copy()
+    p = live[-1]
+    m[o_w + p] += 1 << 16
+    row = m[o_a + p * PE:o_a + (p + 1) * PE]
+    row[row >= 0] += 32 << 16
+    add("segment_clamp", m)
+    return cases
+
+
 def symbol_anchors(raw: bytes, index: dict, dev: str) -> list:
     """Every 64th symbol's bit offset (ordinals 64, 128, ...) of each Huffman
     block, from the symbol lattice that the port's wavefront_decode and
@@ -1141,6 +1249,47 @@ def dense_phase(data: bytes, card: str) -> None:
           flush=True)
 
 
+def walk_checks(per: list, calls: list) -> int:
+    """Kernel B1 (csrc/walk.cu) against its plain version: on every
+    windowed batch, tokens and meta against walk_windows_ref and outlen,
+    laneoff and err against walk_checked_ref; then the adversarial changes
+    of adversarial_windows to three batches (the first, the one with the
+    most pseudo-entries, the one whose segment clamps). per: (walk args,
+    halo, out_cap, engine-2 err) of each batch; calls: the captured device
+    arguments. Returns the max abs err."""
+    import torch
+    from jdeflate_tpu_torch.codec import inflate as I
+    from jdeflate_tpu_torch.ops import walk as wk
+
+    def held(args):
+        return max_abs_err(wk.walk_checked(*args), wk.walk_checked_ref(*args))
+
+    err = 0
+    for args, _, _, _ in per:
+        err = max(err, held(args))
+    if err:
+        fail(f"walk kernel differs from its plain version: {err}")
+    pick = {0, max(range(len(calls)), key=lambda i: calls[i][4])}
+    pick |= {i for i, c in enumerate(calls) if clamps_segment(c)}
+    names = set()
+    for i in sorted(pick):
+        words, metas, row, _, npe, nb, _, ww = calls[i]
+        for name, m, ne in adversarial_windows(metas[row].cpu().numpy(), npe,
+                                               nb, seed=i):
+            args = I._walk_inputs(words, torch.from_numpy(m).cuda(), npe, ne,
+                                  ww)
+            e = held(args)
+            if e:
+                fail(f"walk kernel, adversarial window {name} of batch {i}: "
+                     f"{e} max abs err")
+            names.add(name)
+    print(f"walk kernel equals its plain version on all {len(per)} windowed "
+          f"batches (tokens and meta; outlen, laneoff and err) and on the "
+          f"adversarial windows of batches {sorted(pick)}: "
+          f"{', '.join(sorted(names))} (max abs err 0)", flush=True)
+    return err
+
+
 def expand2_checks(per: list, offs: list, data: bytes) -> int:
     """Kernel B2 (csrc/expand.cu) against its plain version and the corpus.
     per: (walk args, halo, out_cap, engine-2 err) of each windowed batch;
@@ -1158,9 +1307,9 @@ def expand2_checks(per: list, offs: list, data: bytes) -> int:
     for k, ((args, _, oc, e2), (o0, n_out)) in enumerate(zip(per, offs)):
         if e2:
             continue
-        tok, outlen = wk.walk_cuda(*args)[:2]
+        tok, _, outlen, lo, _ = wk.walk_checked(*args)
         halo = corpus_halo(data, o0)
-        o, p, e = ex2.expand_tokens(tok, outlen, halo, oc)
+        o, p, e = ex2.expand_tokens(tok, outlen, halo, oc, lo)
         ro, rp, re_ = ex2.expand_tokens_ref(tok, outlen, halo, oc)
         n = int(rp)
         if int(p) != n or int(e) or int(re_):
@@ -1304,11 +1453,11 @@ def main() -> None:
     idx = dec.build_index(raw)
     index_s = time.perf_counter() - t0
     dec.capture_calls = True
-    wk.walk_cuda.launches = 0
+    wk.walk_checked.launches = 0
     ex2.expand_tokens.launches = 0
     out = dec.decompress(raw, index=idx)
     torch.cuda.synchronize()
-    launches = {"walk": wk.walk_cuda.launches,
+    launches = {"walk": wk.walk_checked.launches,
                 "expand2": ex2.expand_tokens.launches}
     stats = list(dec.last_stats)
     calls = list(dec.last_calls)
@@ -1325,10 +1474,12 @@ def main() -> None:
     errs = [e for k, _, e in stats if k == "win"]
     if any(e and not clamped[i] for i, e in enumerate(errs)):
         fail(f"a batch erred on the main path: {stats}")
+    c5 = [(i, e) for i, e in enumerate(errs) if e]
+    if c5 != E2_ERRS:
+        fail(f"engine-2 err decisions {c5} != the reference's {E2_ERRS}")
     nwin = len(calls)
     if nwin == 0 or launches != {"walk": nwin, "expand2": nwin}:
         fail(f"launches {launches} != {nwin} windowed batches")
-    c5 = [(i, e) for i, e in enumerate(errs) if e]
     print(f"main path: index {index_s:.2f} s, {len(idx['block_bits'])} "
           f"blocks, {nwin} win + {kinds.count('stored')} stored batches "
           f"logged, launches {launches}; batches whose last pseudo-entry "
@@ -1347,7 +1498,7 @@ def main() -> None:
     # err also past the first erring batch (the log stops there).
     per = []
     for words, metas, row, halo, npe, nb, oc, ww in calls:
-        args = I._walk_inputs(words, metas[row], npe, nb, ww)[0]
+        args = I._walk_inputs(words, metas[row], npe, nb, ww)
         e2 = int(I._decode_from_meta(words, metas[row], halo, npe, nb, oc,
                                      ww)[2])
         per.append((args, halo, oc, e2))
@@ -1355,12 +1506,7 @@ def main() -> None:
     if e2_errs[:len(errs)] != errs:
         fail(f"batch errs decoded alone {e2_errs[:len(errs)]} != the "
              f"decode's {errs}")
-    walk_err = 0
-    for args, _, _, _ in per[:2]:
-        walk_err = max(walk_err, max_abs_err(wk.walk_cuda(*args),
-                                             wk.walk_windows_ref(*args)))
-    if walk_err:
-        fail(f"walk kernel differs from its plain version: {walk_err}")
+    walk_err = walk_checks(per, calls)
     exp_err = expand2_checks(per, batch_offsets(dec, raw, idx, "win"), data)
 
     # ---- 5. fallback: a tampered anchor errs and is re-decoded natively
@@ -1370,12 +1516,29 @@ def main() -> None:
     win[k] = win[k].copy()
     valid = [i for i, a in enumerate(win[k]) if a >= 0]
     win[k][valid[len(valid) // 2]] += 1
+    dec.capture_calls = True
     outt = dec.decompress(raw, index={**idx, "win": win})
+    tcalls = list(dec.last_calls)
+    dec.capture_calls = False
     bad = [(p, e) for kk, p, e in dec.last_stats if kk == "win" and e > 0]
     if not bad or outt != data:
         fail(f"tampered anchor: err batches {bad}, bytes ok {outt == data}")
-    print(f"tampered anchor: batch err {bad[0][1]} -> native re-decode ok",
-          flush=True)
+    # the batches whose walk checks the tampered anchor changed, held
+    # against the plain version
+    held = []
+    for i, (words, metas, row, halo, npe, nb, oc, ww) in enumerate(tcalls):
+        args = I._walk_inputs(words, metas[row], npe, nb, ww)
+        if not torch.equal(wk.walk_checked(*args)[4],
+                           wk.walk_checked(*per[i][0])[4]):
+            walk_err = max(walk_err, max_abs_err(
+                wk.walk_checked(*args), wk.walk_checked_ref(*args)))
+            held.append(i)
+    if walk_err or not held:
+        fail(f"tampered anchor: walk checks differ from the plain version "
+             f"({walk_err}) or no batch changed ({held})")
+    print(f"tampered anchor: batch err {bad[0][1]} -> native re-decode ok; "
+          f"the walk's checks equal the plain version on the changed "
+          f"windowed batch(es) {held}", flush=True)
 
     # ---- 6. times
     walk_ms, exp_ms, walk_bound, exp_bound = [], [], [], []
@@ -1383,32 +1546,34 @@ def main() -> None:
     ntok = 0
     lanes = []
     for args, halo, oc, _ in per:
-        start_rel, t1 = args[3], args[4]
+        start_rel, t1, npe = args[3], args[4], args[1].numel()
         L = start_rel.numel()
         lanes.append(L)
-        res = wk.walk_cuda(*args)
-        lo = torch.cumsum(res[1], 0) - res[1]
-        walk_ms.append(gpu_ms(lambda: wk.walk_cuda(*args)))
-        exp_ms.append(gpu_ms(lambda: ex2.expand_tokens(res[0], res[1], halo,
+        tok, _, outlen, lo, _ = wk.walk_checked(*args)
+        walk_ms.append(gpu_ms(lambda: wk.walk_checked(*args)))
+        exp_ms.append(gpu_ms(lambda: ex2.expand_tokens(tok, outlen, halo,
                                                        oc, lo)))
-        exp_args.append((res[0], res[1], halo, oc, lo))
-        walk_plain.append(gpu_ms(lambda: wk.walk_windows_ref(*args), 1))
+        exp_args.append((tok, outlen, halo, oc, lo))
+        walk_plain.append(gpu_ms(lambda: wk.walk_checked_ref(*args), 1))
         exp_plain.append(gpu_ms(
-            lambda: ex2.expand_tokens_ref(res[0], res[1], halo, oc), 1))
-        # least bytes: each input read once, each output written once
+            lambda: ex2.expand_tokens_ref(tok, outlen, halo, oc), 1))
+        # least bytes: each input read once (a word per active lane, the
+        # anchors, three words per pseudo-entry, hist, the tree rows), each
+        # output written once (tokens, meta, outlen, laneoff, err)
         active = int((start_rel >= 0).sum())
-        walk_bytes = (active * 4 + L * 4 + 4 * t1.shape[0] * 128 * 4
-                      + L * wk.S_SLOTS * 4 + L * 4)
-        produced = int(res[1].sum())
+        walk_bytes = (active * 4 + L * 4 + 12 * npe + 4
+                      + 4 * t1.shape[0] * 128 * 4
+                      + L * wk.S_SLOTS * 4 + L * (4 + 4 + 8) + 4)
+        produced = int(outlen.sum())
         exp_bytes = L * wk.S_SLOTS * 4 + L * 4 + I.HALO + produced
         walk_bound.append(walk_bytes / HBM_BYTES_PER_S * 1e3)
         exp_bound.append(exp_bytes / HBM_BYTES_PER_S * 1e3)
-        ntok += int((res[0] != 0).sum())
+        ntok += int((tok != 0).sum())
 
     exp_dev = device_ms(lambda: [ex2.expand_tokens(*a) for a in exp_args],
                         ("expand_place_kernel", "TokenFront"),
                         3) / len(exp_args)
-    walk_dev = device_ms(lambda: [wk.walk_cuda(*p[0]) for p in per],
+    walk_dev = device_ms(lambda: [wk.walk_checked(*p[0]) for p in per],
                          ("walk_kernel",), 3) / len(per)
     wall, span, walls = timed_runs(
         lambda: dec.decompress(raw, index=idx),

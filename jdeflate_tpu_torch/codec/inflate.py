@@ -82,11 +82,13 @@ def _slice_words(words_full: torch.Tensor, word_lo: int, wwords: int):
 
 
 def _walk_inputs(words_full, meta, npe: int, ne: int, wwords: int):
-    """Unpack one batch's meta row into the walk's inputs.
+    """Unpack one batch's meta row into the arguments of ops/walk.py::
+    walk_checked (the first eight are walk_windows_ref's).
 
     meta: [word_lo, hist, pe_word0(npe), pe_tab(npe), alanes(npe*PE),
            ll(ne*288), dl(ne*32)] as one (M,) i32 tensor.
-    Returns (walk args, pe_tab, start_rel (npe, PE), lanebit, hist).
+    Returns (words_full, seg_word0, pe_tab, start_rel (npe*PE,), t1, t2a,
+    t2b, t2c, pe_word0, hist), all views or results on meta's device.
     """
     PE = wk.PE_LANES
     word_lo = meta[0]
@@ -108,60 +110,29 @@ def _walk_inputs(words_full, meta, npe: int, ne: int, wwords: int):
                               device=meta.device)[None, :]) * 32
     start_rel = torch.where(alanes >= 0, alanes - lanebit,
                             torch.full_like(alanes, -1)).to(torch.int32)
-    args = (words_full, seg_word0, pe_tab.contiguous(),
-            start_rel.reshape(-1), t1, t2a, t2b, t2c)
-    return args, pe_tab, start_rel, lanebit, hist
+    return (words_full, seg_word0, pe_tab, start_rel.reshape(-1), t1, t2a,
+            t2b, t2c, pe_word0, hist)
 
 
 def _decode_from_meta(words_full, meta, halo, npe: int, ne: int,
                       out_cap: int, wwords: int, engine: int = 2):
     """Decode one windowed batch. Returns (out (out_cap,) u8, produced, err,
-    next_halo), all on the device; nothing is read back. engine 5 expands
-    through ops/expand5.py, any other value through ops/expand2.py."""
-    args, pe_tab, start_rel, lanebit, hist = _walk_inputs(
-        words_full, meta, npe, ne, wwords)
-    tok_lm, _, _, err_l, posf, eobf = wk.walk_cuda(*args)
-    PE = wk.PE_LANES
-    err_l = err_l.reshape(npe, PE)
-    eobf = eobf.reshape(npe, PE)
-    posf = posf.reshape(npe, PE)
-    # exit-chain validation: every lane's final bit position must be exactly
-    # the next lane's anchor (the structural check corruption cannot dodge)
-    BIGV = 1 << 29
-    active = start_rel >= 0
-    sabs = torch.where(active, lanebit + start_rel,
-                       torch.full_like(start_rel, BIGV))
-    exit_abs = lanebit + posf
-    nxt_in = torch.flip(torch.cummin(torch.flip(sabs, [1]), 1).values, [1])
-    big = torch.full((npe, 1), BIGV, dtype=sabs.dtype, device=sabs.device)
-    nxt_in = torch.cat([nxt_in[:, 1:], big], 1)
-    head = sabs.min(1).values
-    same_ent = torch.cat([pe_tab[1:] == pe_tab[:-1],
-                          torch.zeros(1, dtype=torch.bool,
-                                      device=pe_tab.device)])
-    nxt_head = torch.where(same_ent, torch.cat([head[1:], big[0]]), big[:, 0])
-    nxt = torch.minimum(nxt_in, nxt_head[:, None])
-    chain_bad = active & ~eobf & (exit_abs != nxt)
-    err_w = err_l.sum() + chain_bad.sum()
-
-    len2, _, dist2 = ex2.token_slots(tok_lm)
-    outlen = len2.sum(1, dtype=torch.int32)
-    # far-offset validation (INFLT_EFAROFFSET analog, inflator.c:1233-1237):
-    # a match may not reach past the available history
-    laneoff = torch.cumsum(outlen, 0) - outlen
-    off_in = laneoff[:, None] + torch.cumsum(len2, 1) - len2
-    far = (dist2 > 0) & (dist2 > off_in + hist)
-    err_w = err_w + far.sum()
-
+    next_halo), all on the device; nothing is read back. The walk checks
+    its exit chain and far offsets (ops/walk.py::walk_checked, in the
+    kernel's epilogue on the card) and hands its lane offsets on. engine 5
+    expands through ops/expand5.py, any other value through
+    ops/expand2.py."""
+    tok_lm, _, outlen, laneoff, err_w = wk.walk_checked(
+        *_walk_inputs(words_full, meta, npe, ne, wwords))
     if engine == 5:
         out, produced, kerr = ex5.expand_tokens(tok_lm, outlen, halo,
-                                                out_cap)
+                                                out_cap, laneoff)
         aerr = kerr + (produced > out_cap).to(kerr.dtype)
     else:
         out, produced, aerr = ex2.expand_tokens(tok_lm, outlen, halo,
                                                 out_cap, laneoff)
-    return out, produced, err_w + aerr, _next_window(halo, out, produced,
-                                                     out_cap)
+    return out, produced, err_w[0] + aerr, _next_window(halo, out, produced,
+                                                        out_cap)
 
 
 def decode_batch_windows_stacked(words_full, metas, row: int, halo,

@@ -50,6 +50,7 @@
 
 #pragma once
 
+#include <atomic>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -60,6 +61,7 @@ constexpr int kThreads = 1024;
 constexpr int kGroups = kTile / (4 * kThreads);  // 4-position groups
 constexpr int kExt = 1 << 30;                    // state: kExt + source
 constexpr int kRounds = 16;                      // > log2(kTile)
+constexpr int kMaxDevices = 64;                  // device ordinals cached
 
 static_assert(kTile % (4 * kThreads) == 0, "tile of whole 4-byte groups");
 
@@ -234,21 +236,28 @@ inline bool scratch_ok(int64_t max_n, int64_t map_len, int64_t sync_len) {
          tiles * kTile < kExt;
 }
 
-// Launch the resolve of at most max_n positions on stream s: a grid of one
-// block per tile, at most as many as fit on the card at once (computed on
-// the first call for each front).
+// Launch the resolve of at most max_n positions on stream s, on the current
+// device: a grid of one block per tile, at most as many as fit on the card
+// at once. The shared-memory attribute is a property of the kernel on one
+// device, so it is set, and the grid cap computed, once per device and
+// front: the first launch on each device does both.
 template <class Front>
 cudaError_t launch_resolve(const Front& f, int* map, uint8_t* out, int* sync,
                            int64_t max_n, cudaStream_t s) {
-  static int grid_cap = 0;
+  static std::atomic<int> grid_cap[kMaxDevices];
   const int smem = kTile * (int)sizeof(int);
-  if (grid_cap == 0) {
-    cudaError_t e = cudaFuncSetAttribute(
-        tile_resolve_kernel<Front>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return e;
-    int dev = 0, sms = 0, per_sm = 0;
-    if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  int cap = grid_cap[dev].load(std::memory_order_acquire);
+  if (cap == 0) {
+    if ((e = cudaFuncSetAttribute(
+             tile_resolve_kernel<Front>,
+             cudaFuncAttributeMaxDynamicSharedMemorySize, smem)) !=
+        cudaSuccess)
+      return e;
+    int sms = 0, per_sm = 0;
     if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
                                     dev)) != cudaSuccess)
       return e;
@@ -256,11 +265,12 @@ cudaError_t launch_resolve(const Front& f, int* map, uint8_t* out, int* sync,
              &per_sm, tile_resolve_kernel<Front>, kThreads, smem)) !=
         cudaSuccess)
       return e;
-    grid_cap = sms * (per_sm > 0 ? per_sm : 1);
+    cap = sms * (per_sm > 0 ? per_sm : 1);
+    grid_cap[dev].store(cap, std::memory_order_release);
   }
   const int64_t tiles = (max_n + kTile - 1) / kTile;
   if (tiles == 0) return cudaSuccess;
-  const int grid = (int)(tiles < grid_cap ? tiles : grid_cap);
+  const int grid = (int)(tiles < cap ? tiles : cap);
   tile_resolve_kernel<Front><<<grid, kThreads, smem, s>>>(f, map, out, sync);
   return cudaGetLastError();
 }

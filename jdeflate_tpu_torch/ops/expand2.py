@@ -28,27 +28,13 @@ HALO = C.WINDOW_SIZE                  # 32768
 TILE = _cuda.TILE                     # positions per resolve tile
 
 
-def token_slots(tok_lm: torch.Tensor):
-    """(L, S) tokens -> (len, lit, dist) per slot, each (L, S) (0 for an
-    empty slot)."""
-    kind = (tok_lm >> 30) & 3
-    zero = torch.zeros_like(tok_lm)
-    is_lit = kind == wk.TOK_LIT
-    is_m = kind == wk.TOK_MATCH
-    o_len = torch.where(is_lit, torch.ones_like(tok_lm),
-                        torch.where(is_m, tok_lm & 0x1FF, zero))
-    o_dist = torch.where(is_m, ((tok_lm >> 9) & 0x7FFF) + 1, zero)
-    o_lit = torch.where(is_lit, tok_lm & 0xFF, zero)
-    return o_len, o_lit, o_dist
-
-
 def expand_tokens_ref(tok_lm: torch.Tensor, outlen: torch.Tensor,
                       halo: torch.Tensor, out_cap: int):
     """Plain expansion. Returns (out (out_cap,) u8, produced, err), err from
     assemble_output (tokens past the buffer, unresolved positions). outlen
     is not needed: the slots carry every length."""
     del outlen
-    o_len, o_lit, o_dist = (x.reshape(-1) for x in token_slots(tok_lm))
+    o_len, o_lit, o_dist = (x.reshape(-1) for x in wk.token_slots(tok_lm))
     return dk.assemble_output(o_len, o_lit, o_dist, halo, out_cap)
 
 

@@ -3,15 +3,16 @@
 Port of jdeflate_tpu/ops/expand5.py, selected by JDT_EXPAND=5. The
 pipeline, for one batch of lane-major walk tokens:
 
-  1. slot attrs (plain PyTorch): per-slot output offset (cumsum) and 16-bit
-     seed (literal byte / match distance) over the (L, S_SLICE) fast slice;
-     rare lanes with more tokens ride the exact top-k spill pass.
-  2. seed (kernel csrc/expand5seed.cu): every seed is written at its output
-     position.
-  3. butterfly propagate (plain): every output position learns its covering
+  1. seed plane (kernel csrc/expand5seed.cu): from the tokens and the
+     walk's lane offsets, each fast-slice token's 16-bit seed (literal
+     byte / match distance) at its first output byte and 0 at every other
+     position of the plane, with the flat slot (off, seed16) arrays beside
+     it; the rare lanes with more than S_SLICE tokens ride the exact top-k
+     spill pass (plain PyTorch).
+  2. butterfly propagate (plain): every output position learns its covering
      token's pack and its phase within it, in 9 shift/select stages (a
      DEFLATE item is at most 258 bytes).
-  4. resolve (kernel csrc/expand5resolve.cu): every position's entry
+  3. resolve (kernel csrc/expand5resolve.cu): every position's entry
      (a byte, or its collapsed source) straight from its plan, grounded by
      the ordered-tile resolve shared with the other engines (16 KiB tiles
      over every SM, csrc/tile_resolve.cuh).
@@ -171,11 +172,17 @@ def _tok_attrs(toks: torch.Tensor, laneoff: torch.Tensor):
     return off.to(_I32), seed16.to(_I32)
 
 
+def _fast_attrs(tok_lm: torch.Tensor, laneoff: torch.Tensor):
+    """Flat (off, seed16) over the (L, S_SLICE) fast slice, each lane's
+    offsets from laneoff."""
+    off, seed16 = _tok_attrs(tok_lm[:, :S_SLICE], laneoff)
+    return off.reshape(-1).contiguous(), seed16.reshape(-1).contiguous()
+
+
 def slot_attrs16(tok_lm: torch.Tensor, outlen: torch.Tensor):
     """(L, S) walk tokens -> flat (off, seed16) over the (L, S_SLICE) fast
-    slice, for the seed kernel."""
-    off, seed16 = _tok_attrs(tok_lm[:, :S_SLICE], _laneoff(outlen))
-    return off.reshape(-1).contiguous(), seed16.reshape(-1).contiguous()
+    slice, as the reference's seed kernel takes them."""
+    return _fast_attrs(tok_lm, _laneoff(outlen))
 
 
 def seed_window_err(off: torch.Tensor, seed16: torch.Tensor, out_cap: int):
@@ -201,33 +208,51 @@ def seed_window_err(off: torch.Tensor, seed16: torch.Tensor, out_cap: int):
     return (hi_b > lo_b + 2).sum(dtype=_I32)
 
 
-def seed_scatter(off: torch.Tensor, seed16: torch.Tensor, out_cap: int):
-    """Place the fast slice's seeds: csrc/expand5seed.cu on a CUDA tensor,
-    seed_scatter_ref on a CPU tensor. Returns (out_cap,) i32. Counts its
-    kernel launches in seed_scatter.launches."""
-    if off.device.type == "cpu":
-        return seed_scatter_ref(off, seed16, out_cap)
+def seed_plane_ref(tok_lm: torch.Tensor, laneoff: torch.Tensor,
+                   out_cap: int):
+    """Plain seed placement of the fast slice: slot_attrs16 and
+    seed_scatter_ref, composed. laneoff: (L,) i64 exclusive scan of the
+    lanes' output bytes (the walk's). Returns (S16 (out_cap,) i32 with
+    every fast-slice seed at its token's first byte and 0 elsewhere, off
+    (L*S_SLICE,) i32, seed16 (L*S_SLICE,) i32)."""
+    off, seed16 = _fast_attrs(tok_lm, laneoff)
+    return seed_scatter_ref(off, seed16, out_cap), off, seed16
+
+
+def seed_plane(tok_lm: torch.Tensor, laneoff: torch.Tensor, out_cap: int):
+    """The seed plane: csrc/expand5seed.cu on a CUDA tensor, seed_plane_ref
+    on a CPU tensor. Same arguments and result as seed_plane_ref; the
+    kernel writes every position of the plane, so nothing zeroes it first.
+    laneoff must be the exclusive scan of the tokens' lengths, as
+    ops/walk.py::walk_checked gives it. Counts its kernel launches in
+    seed_plane.launches."""
+    if tok_lm.device.type == "cpu":
+        return seed_plane_ref(tok_lm, laneoff, out_cap)
     from . import _cuda
-    dev = off.device
-    n = off.shape[0]
-    _cuda.check_tensor(off, "off", _I32, dev, (n,))
-    _cuda.check_tensor(seed16, "seed16", _I32, dev, (n,))
+    dev = tok_lm.device
+    L = tok_lm.shape[0]
+    _cuda.check_tensor(tok_lm, "tok_lm", _I32, dev, (L, wk.S_SLOTS))
+    _cuda.check_tensor(laneoff, "laneoff", torch.int64, dev, (L,))
     fn = _cuda.entry("expand5seed", "jd_expand5_seed",
                      [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-                      ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p])
-    out = torch.zeros(out_cap, dtype=_I32, device=dev)
+                      ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
+                      ctypes.c_void_p, ctypes.c_void_p])
+    plane = torch.empty(out_cap, dtype=_I32, device=dev)
+    off = torch.empty(L * S_SLICE, dtype=_I32, device=dev)
+    seed16 = torch.empty(L * S_SLICE, dtype=_I32, device=dev)
     with torch.cuda.device(dev):
-        rc = fn(off.data_ptr(), seed16.data_ptr(), n, out.data_ptr(),
-                out_cap, _cuda.stream_ptr())
+        rc = fn(tok_lm.data_ptr(), laneoff.data_ptr(), L, plane.data_ptr(),
+                out_cap, off.data_ptr(), seed16.data_ptr(),
+                _cuda.stream_ptr())
     _cuda.check(rc, "expand5 seed kernel launch")
-    seed_scatter.launches += 1
-    return out
+    seed_plane.launches += 1
+    return plane, off, seed16
 
 
-seed_scatter.launches = 0
+seed_plane.launches = 0
 
 
-def spill_pass(tok_lm, outlen, S16_flat, out_cap: int):
+def spill_pass(tok_lm, laneoff, S16_flat, out_cap: int):
     """Seed the rare lanes with more than S_SLICE tokens (dense literal
     runs). Takes the top-SPILL_K spill lanes by lane index, as lax.top_k
     does (ties of the -1 score by the lower index: a stable descending
@@ -243,7 +268,7 @@ def spill_pass(tok_lm, outlen, S16_flat, out_cap: int):
     k = min(SPILL_K, L)
     vals, idxs = vals[:k], idxs[:k]
     rows = tok_lm[idxs]
-    offr, seedr = _tok_attrs(rows, _laneoff(outlen)[idxs])
+    offr, seedr = _tok_attrs(rows, laneoff[idxs])
     sel = (seedr != 0) & (vals[:, None] >= 0)
     sel[:, :S_SLICE] = False                # fast slice already seeded
     tgt = torch.where(sel & (offr >= 0) & (offr < out_cap), offr,
@@ -303,15 +328,15 @@ resolve.launches = 0
 
 
 def expand_tokens(tok_lm: torch.Tensor, outlen: torch.Tensor,
-                  halo: torch.Tensor, out_cap: int):
+                  halo: torch.Tensor, out_cap: int, laneoff: torch.Tensor):
     """The v5 pipeline. Same contract as expand2.expand_tokens plus an error
     count (seed-window regions, spilled lanes, the resolve's 0; the caller
-    falls back): returns (out (out_cap,) u8, produced, err)."""
-    off, seed16 = slot_attrs16(tok_lm, outlen)
+    falls back): returns (out (out_cap,) u8, produced, err). laneoff: (L,)
+    i64 exclusive scan of outlen (ops/walk.py::walk_checked gives it)."""
+    S16, off, seed16 = seed_plane(tok_lm, laneoff, out_cap)
     produced = outlen.sum(dtype=_I32)
-    S16 = seed_scatter(off, seed16, out_cap)
     serr = seed_window_err(off, seed16, out_cap)
-    S16f, sperr = spill_pass(tok_lm, outlen, S16, out_cap)
+    S16f, sperr = spill_pass(tok_lm, laneoff, S16, out_cap)
     P = propagate(seed16_to_plan(S16f)).contiguous()
     out, rerr = resolve(P, halo, out_cap)
     return out, produced, serr + sperr + rerr

@@ -24,10 +24,12 @@ array. All per-tree state packs into four 128-entry i32 rows:
   T2c row: [0:32]  litlen sorted symbols [256:288)
            [32:61] length attr for lsym 257..285: base | extra<<12
 
-Two implementations of one contract (the JAX package's ops/walk.py):
-  * walk_ref / walk_windows_ref - plain PyTorch, any device (the referee,
-    and the CPU path);
-  * walk_cuda - the CUDA kernel csrc/walk.cu on a CUDA tensor.
+Two implementations of one contract (the JAX package's ops/walk.py, and
+the checks its decode runs right after the walk):
+  * walk_ref / walk_windows_ref - plain PyTorch, any device (the referee);
+    walk_checked_ref - walk_windows_ref and the checks (the CPU path);
+  * walk_checked - the CUDA kernel csrc/walk.cu on a CUDA tensor: the walk
+    with the checks in its epilogue.
 
 Word arithmetic in the plain version runs in int64 masked to 32 bits:
 PyTorch has no u32 shifts or adds on the CPU. Token words travel as int32
@@ -47,6 +49,7 @@ K_BITS = 32          # window grid pitch (bits) == one u32 word
 S_SLOTS = 32         # max symbols starting in one window (>= K_BITS / 1)
 PE_LANES = 1024      # lanes per pseudo-entry: one tree per 1024 lanes
 PE_ROWS = PE_LANES // 128
+WALK_BLOCK = 256     # lanes per block of the kernel (csrc/walk.cu)
 
 TOK_LIT = 1          # tok kind codes (bits 30:32)
 TOK_MATCH = 2
@@ -301,45 +304,127 @@ def walk_windows_ref(words, seg_word0, pe_tab, start_rel, t1, t2a, t2b, t2c):
                     rows(t2c))
 
 
-def unpack_meta(meta: torch.Tensor):
-    """Kernel meta word -> (outlen, cnt, err, pos, eob) as walk_ref gives."""
-    return (meta & 0x7FFF, (meta >> 15) & 0x3F, ((meta >> 21) & 1) > 0,
-            (meta >> 23) & 0xFF, ((meta >> 22) & 1) > 0)
+def pack_meta(outlen, cnt, err, pos, eob) -> torch.Tensor:
+    """walk_ref's per-lane fields -> the kernel's meta word (i32): outlen
+    0:15, cnt 15:21, err 21, eob 22, exit pos 23:31."""
+    i32 = torch.int32
+    return (outlen.to(i32) | (cnt.to(i32) << 15) | (err.to(i32) << 21)
+            | (eob.to(i32) << 22) | (pos.clamp(max=255).to(i32) << 23))
 
 
-def walk_cuda(words, seg_word0, pe_tab, start_rel, t1, t2a, t2b, t2c):
-    """The window walk: csrc/walk.cu on a CUDA tensor, walk_windows_ref on a
-    CPU tensor. Same arguments and result as walk_windows_ref. Counts its
-    kernel launches in walk_cuda.launches."""
+def token_slots(tok_lm: torch.Tensor):
+    """(L, S) tokens -> (len, lit, dist) per slot, each (L, S) (0 for an
+    empty slot)."""
+    kind = (tok_lm >> 30) & 3
+    zero = torch.zeros_like(tok_lm)
+    is_lit = kind == TOK_LIT
+    is_m = kind == TOK_MATCH
+    o_len = torch.where(is_lit, torch.ones_like(tok_lm),
+                        torch.where(is_m, tok_lm & 0x1FF, zero))
+    o_dist = torch.where(is_m, ((tok_lm >> 9) & 0x7FFF) + 1, zero)
+    o_lit = torch.where(is_lit, tok_lm & 0xFF, zero)
+    return o_len, o_lit, o_dist
+
+
+def walk_checked_ref(words, seg_word0, pe_tab, start_rel, t1, t2a, t2b, t2c,
+                     pe_word0, hist):
+    """Plain version of the kernel's contract (any device): the window walk
+    (walk_windows_ref, its first eight arguments) and the checks the
+    reference runs right after it (jdeflate_tpu/codec/inflate.py,
+    _decode_batch_windows_impl).
+
+    pe_word0: (npe,) i32 first word of each pseudo-entry as the index gives
+      it (the anchors' base, clamped at 0; seg_word0 is clamped into the
+      word window as well, ROADMAP C5). hist: () i32 bytes of history
+      before the batch.
+    Returns (tok (L, 32) i32, meta (L,) i32 (pack_meta), outlen (L,) i32,
+    laneoff (L,) i64 the exclusive scan of outlen, err (1,) i32 = lane
+    errors + broken exit-chain links + matches reaching past the
+    history)."""
+    tok_lm, outlen_w, cnt, err_l, posf, eobf = walk_windows_ref(
+        words, seg_word0, pe_tab, start_rel, t1, t2a, t2b, t2c)
+    meta = pack_meta(outlen_w, cnt, err_l, posf, eobf)
+    PE = PE_LANES
+    npe = pe_tab.shape[0]
+    dev = tok_lm.device
+    err_l = err_l.reshape(npe, PE)
+    eobf = eobf.reshape(npe, PE)
+    posf = posf.reshape(npe, PE)
+    start_rel = start_rel.reshape(npe, PE)
+    lanebit = (torch.clamp(pe_word0, min=0)[:, None]
+               + torch.arange(PE, dtype=torch.int32, device=dev)[None, :]) * 32
+    # exit-chain validation: every lane's final bit position must be exactly
+    # the next lane's anchor (the structural check corruption cannot dodge)
+    BIGV = 1 << 29
+    active = start_rel >= 0
+    sabs = torch.where(active, lanebit + start_rel,
+                       torch.full_like(start_rel, BIGV))
+    exit_abs = lanebit + posf
+    nxt_in = torch.flip(torch.cummin(torch.flip(sabs, [1]), 1).values, [1])
+    big = torch.full((npe, 1), BIGV, dtype=sabs.dtype, device=dev)
+    nxt_in = torch.cat([nxt_in[:, 1:], big], 1)
+    head = sabs.min(1).values
+    same_ent = torch.cat([pe_tab[1:] == pe_tab[:-1],
+                          torch.zeros(1, dtype=torch.bool, device=dev)])
+    nxt_head = torch.where(same_ent, torch.cat([head[1:], big[0]]), big[:, 0])
+    nxt = torch.minimum(nxt_in, nxt_head[:, None])
+    chain_bad = active & ~eobf & (exit_abs != nxt)
+    err_w = err_l.sum() + chain_bad.sum()
+
+    len2, _, dist2 = token_slots(tok_lm)
+    outlen = len2.sum(1, dtype=torch.int32)
+    # far-offset validation (INFLT_EFAROFFSET analog, inflator.c:1233-1237):
+    # a match may not reach past the available history
+    laneoff = torch.cumsum(outlen, 0) - outlen
+    off_in = laneoff[:, None] + torch.cumsum(len2, 1) - len2
+    far = (dist2 > 0) & (dist2 > off_in + hist)
+    err_w = err_w + far.sum()
+    return tok_lm, meta, outlen, laneoff, err_w.reshape(1).to(torch.int32)
+
+
+def walk_checked(words, seg_word0, pe_tab, start_rel, t1, t2a, t2b, t2c,
+                 pe_word0, hist):
+    """The window walk and its checks: csrc/walk.cu on a CUDA tensor,
+    walk_checked_ref on a CPU tensor. Same arguments and result as
+    walk_checked_ref; nothing is read back to the host. Counts its kernel
+    launches in walk_checked.launches."""
     if words.device.type == "cpu":
-        return walk_windows_ref(words, seg_word0, pe_tab, start_rel,
-                                t1, t2a, t2b, t2c)
+        return walk_checked_ref(words, seg_word0, pe_tab, start_rel,
+                                t1, t2a, t2b, t2c, pe_word0, hist)
     from . import _cuda
     dev = words.device
     npe = seg_word0.shape[0]
     L = npe * PE_LANES
     _cuda.check_tensor(words, "words", torch.int32, dev)
-    _cuda.check_tensor(seg_word0, "seg_word0", torch.int32, dev, (npe,))
-    _cuda.check_tensor(pe_tab, "pe_tab", torch.int32, dev, (npe,))
+    for name, t in (("seg_word0", seg_word0), ("pe_word0", pe_word0),
+                    ("pe_tab", pe_tab)):
+        _cuda.check_tensor(t, name, torch.int32, dev, (npe,))
     _cuda.check_tensor(start_rel, "start_rel", torch.int32, dev, (L,))
+    _cuda.check_tensor(hist, "hist", torch.int32, dev, ())
     for name, t in (("t1", t1), ("t2a", t2a), ("t2b", t2b), ("t2c", t2c)):
         _cuda.check_tensor(t, name, torch.int32, dev, (t1.shape[0], 128))
-    fn = _cuda.entry("walk", "jd_walk", [ctypes.c_void_p] * 10
+    fn = _cuda.entry("walk", "jd_walk", [ctypes.c_void_p] * 15
                      + [ctypes.c_int64, ctypes.c_int, ctypes.c_void_p])
     tok = torch.empty(L, S_SLOTS, dtype=torch.int32, device=dev)
     meta = torch.empty(L, dtype=torch.int32, device=dev)
+    outlen = torch.empty(L, dtype=torch.int32, device=dev)
+    laneoff = torch.empty(L, dtype=torch.int64, device=dev)
+    # the ticket, the err count, one 64-bit look-back state per block
+    sync = torch.zeros(2 + 2 * (L // WALK_BLOCK), dtype=torch.int32,
+                       device=dev)
     with torch.cuda.device(dev):
-        rc = fn(words.data_ptr(), seg_word0.data_ptr(), pe_tab.data_ptr(),
-                start_rel.data_ptr(), t1.data_ptr(), t2a.data_ptr(),
-                t2b.data_ptr(), t2c.data_ptr(), tok.data_ptr(),
-                meta.data_ptr(), words.shape[0], npe, _cuda.stream_ptr())
+        rc = fn(words.data_ptr(), seg_word0.data_ptr(), pe_word0.data_ptr(),
+                pe_tab.data_ptr(), start_rel.data_ptr(), hist.data_ptr(),
+                t1.data_ptr(), t2a.data_ptr(), t2b.data_ptr(), t2c.data_ptr(),
+                tok.data_ptr(), meta.data_ptr(), outlen.data_ptr(),
+                laneoff.data_ptr(), sync.data_ptr(), words.shape[0], npe,
+                _cuda.stream_ptr())
     _cuda.check(rc, "walk kernel launch")
-    walk_cuda.launches += 1
-    outlen, cnt, err, pos, eob = unpack_meta(meta)
-    return tok, outlen, cnt, err, pos, eob
+    walk_checked.launches += 1
+    return tok, meta, outlen, laneoff, sync[1:2]
 
 
-walk_cuda.launches = 0
+walk_checked.launches = 0
 
 
 def annotate_lit_runs(tok_lm: torch.Tensor) -> torch.Tensor:

@@ -122,6 +122,11 @@ def _case(name):
     raise ValueError(name)
 
 
+def _laneoff(outlen):
+    """(L,) i64 exclusive scan of the lanes' output bytes."""
+    return torch.from_numpy(np.cumsum(outlen, dtype=np.int64) - outlen)
+
+
 def _pack(lanes):
     tok = np.zeros((L, 32), np.uint32)
     outlen = np.zeros(L, np.int32)
@@ -159,7 +164,7 @@ def test_pipeline_matches_jax_kernels(name):
     jout, jprod, jerr = _jax_expand5(tok, outlen, halo)
     out, prod, err = tex5.expand_tokens(
         torch.from_numpy(tok.view(np.int32)), torch.from_numpy(outlen),
-        torch.from_numpy(halo), CAP)
+        torch.from_numpy(halo), CAP, _laneoff(outlen))
     assert int(prod) == jprod == len(ref)
     assert int(err) == jerr == CASES[name]
     if jerr == 0:
@@ -189,7 +194,10 @@ def test_seed_window_err_matches_jax():
         with pltpu.force_tpu_interpret_mode():
             _, jerr = jex5.seed_scatter_mm(joff, jseed, CAP)
         assert int(tex5.seed_window_err(off, seed, CAP)) == int(jerr)
-        S16 = tex5.seed_scatter(off, seed, CAP)
+        # the seed plane's plain entry gives the same slot arrays
+        S16, off2, seed2 = tex5.seed_plane(
+            torch.from_numpy(tok.view(np.int32)), _laneoff(outlen), CAP)
+        assert torch.equal(off2, off) and torch.equal(seed2, seed)
         want = np.zeros(CAP + 1, np.int64)
         np.maximum.at(want, np.where((seed.numpy() != 0)
                                      & (off.numpy() < CAP),
@@ -247,9 +255,11 @@ def test_spill_pass_and_plan_seeds_match_jax():
         S_all.numpy(), np.asarray(jex5.seed_scatter_ref(joff_all, jseed_all,
                                                         cap)))
     off, seed = tex5.slot_attrs16(tt, to)
-    S16 = tex5.seed_scatter(off, seed, cap)
+    S16, off2, seed2 = tex5.seed_plane(tt, _laneoff(outlen), cap)
+    assert torch.equal(off2, off) and torch.equal(seed2, seed)
+    assert torch.equal(S16, tex5.seed_scatter_ref(off, seed, cap))
     assert int(tex5.seed_window_err(off, seed, cap)) == 0
-    S16f, err = tex5.spill_pass(tt, to, S16, cap)
+    S16f, err = tex5.spill_pass(tt, _laneoff(outlen), S16, cap)
     jS16f, jerr = jex5.spill_pass(tj, oj, jnp.asarray(S16.numpy()), cap)
     np.testing.assert_array_equal(S16f.numpy(), np.asarray(jS16f))
     assert int(err) == int(jerr) == 0
@@ -268,11 +278,11 @@ def test_kernels_match_plain_on_card(name):
         pytest.skip("needs a CUDA device")
     lanes, halo = _case(name)
     tok, outlen = _pack(lanes)
-    tt = torch.from_numpy(tok.view(np.int32))
-    off, seed = (x.cuda() for x in tex5.slot_attrs16(tt,
-                                                    torch.from_numpy(outlen)))
-    S16 = tex5.seed_scatter(off, seed, CAP)
-    assert torch.equal(S16, tex5.seed_scatter_ref(off, seed, CAP))
+    tt = torch.from_numpy(tok.view(np.int32)).cuda()
+    lo = _laneoff(outlen).cuda()
+    S16, off, seed = tex5.seed_plane(tt, lo, CAP)
+    for g, w in zip((S16, off, seed), tex5.seed_plane_ref(tt, lo, CAP)):
+        assert torch.equal(g, w)
     P = tex5.propagate(tex5.seed16_to_plan(S16)).contiguous()
     hc = torch.from_numpy(halo).cuda()
     out, err = tex5.resolve(P, hc, CAP)

@@ -76,8 +76,8 @@ def _batch_tokens(raw, dictionary=b""):
     index = td.build_index(raw, dictionary)
     td.decompress(raw, index=index, dictionary=dictionary)
     words, metas, row, halo, npe, nb, oc, ww = td.last_calls[0]
-    args = tinf._walk_inputs(words, metas[row], npe, nb, ww)[0]
-    tok, outlen = twalk.walk_cuda(*args)[:2]
+    args = tinf._walk_inputs(words, metas[row], npe, nb, ww)
+    tok, _, outlen = twalk.walk_checked(*args)[:3]
     return tok, outlen, halo, oc
 
 

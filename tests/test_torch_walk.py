@@ -196,9 +196,12 @@ def test_walk_kernel_matches_plain_on_card(corpus):
     dec.capture_calls = True
     assert dec.decompress(raw, index=dec.build_index(raw)) == data
     words, metas, row, _, npe, nb, _, ww = dec.last_calls[0]
-    args = I._walk_inputs(words, metas[row], npe, nb, ww)[0]
-    got = twalk.walk_cuda(*args)
-    want = twalk.walk_windows_ref(*args)
+    args = I._walk_inputs(words, metas[row], npe, nb, ww)
+    got = twalk.walk_checked(*args)
+    want = twalk.walk_checked_ref(*args)
     torch.cuda.synchronize()
     for g, w in zip(got, want):
         assert torch.equal(g.to(w.dtype), w)
+    tok, outlen, cnt, err, pos, eob = twalk.walk_windows_ref(*args[:8])
+    assert torch.equal(got[0], tok)
+    assert torch.equal(got[1], twalk.pack_meta(outlen, cnt, err, pos, eob))
