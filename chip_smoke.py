@@ -25,7 +25,20 @@ level 6, re-indexed with symbol anchors taken from the symbol lattice the
 port computes on the card, through the v1 match-expansion kernel, every
 batch at err 0. Dense decode: the first 8 MiB compressed by zlib, indexed
 with block offsets only (its segmented orbits err in both packages,
-ROADMAP C8), and a 1 MiB dense decode held against the CPU. Each kernel is
+ROADMAP C8), and a 1 MiB dense decode held against the CPU. ZStream: the
+corpus through ZStream("deflate") in uneven writes with one sync flush
+midway (each segment equal to RawDeflater of its chunk and dictionary, the
+CRC32 equal to zlib's), and the zlib-6 gzip stream with trailing garbage
+fed to ZStream("inflate") in 1 MiB chunks (output, used_input and
+unused_data checked); the host time of its checksum round trips is printed.
+Sharded: ShardedDeflater on four ranks of cuda:0, members mode over the
+corpus (gzip and decompress_members on the card must give it back), stream
+mode over the first 8 MiB (its combined CRC32 equal to zlib's), and a
+verify=True run whose fault hook corrupts one shard (one retry, right
+output); the match walk is held to its plain version on the members
+encode's batches, the walk and the token expansion on the member
+decodes'. Each path's kernel launches are counted from zero around it
+(path_launches in the kernels line). Each kernel is
 held against its plain PyTorch version on the main path's inputs, the
 encoder's integer stages on the card against the same stages on the CPU,
 and everything is timed. The walk (B1) is held to its plain version on
@@ -50,9 +63,12 @@ Without a CUDA device it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
+import gzip
 import json
 import os
 import statistics
+import struct
 import subprocess
 import sys
 import time
@@ -62,6 +78,11 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 CORPUS_MB = 32
 ANCH_MB = 8                   # anchored and dense decode: the first 8 MiB
 DENSE_MB = 8
+ZS_WRITE = 1_000_003          # ZStream deflate: uneven writes
+SHARD_RANKS = 4               # sharded encode: four ranks on cuda:0
+SHARD_STREAM_MB = 8           # sharded stream mode and the retry run
+PROFILE_MB = 4                # ZStream and sharded paths: profiled slice
+_T0 = time.perf_counter()
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate (data sheet)
 BATCH = dict(max_batch_bits=1 << 25, max_batch_blocks=256,
              max_batch_out=1 << 23)
@@ -71,6 +92,10 @@ BATCH = dict(max_batch_bits=1 << 25, max_batch_blocks=256,
 # (ROADMAP C3); each decode goes native from there
 E2_ERRS = [(27, 64)]
 V5_ERRS = [(0, 1)]
+
+
+def stamp(what: str) -> None:
+    print(f"[{time.perf_counter() - _T0:.1f} s] {what}", flush=True)
 
 
 def fail(msg: str) -> None:
@@ -184,19 +209,20 @@ def device_ms(fn, names, reps: int = 5) -> float:
 
 def profile_run(what: str, fn, span_s: float) -> None:
     """Device time by kernel over one run of fn (torch.profiler), and the
-    device's busy share of the run's span. Only device-side events count:
-    an operator's row carries the device time of the kernels it launched,
-    which the kernels' own rows hold already."""
+    device's busy share of the run's span. Only device-side events are
+    recorded: the host's operator events add nothing to the device time,
+    and a 32 MiB encode launches about 320,000 kernels to analyse."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     rows = [(e.self_device_time_total / 1e3, e.count, e.key)
             for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(r[0] for r in rows)
+    took = time.perf_counter() - t0
     if busy <= 0:
         print(f"profile {what}: the profiler saw no device time", flush=True)
         return
@@ -207,8 +233,8 @@ def profile_run(what: str, fn, span_s: float) -> None:
           f"{sum(r[1] for r in rows)} device events; scan kernels "
           f"{sum(r[0] for r in scans):.1f} ms x{sum(r[1] for r in scans)}; "
           "top: "
-          + "; ".join(f"{k[:48]} x{c} {ms:.1f} ms" for ms, c, k in top),
-          flush=True)
+          + "; ".join(f"{k[:48]} x{c} {ms:.1f} ms" for ms, c, k in top)
+          + f"; profiled and analysed in {took:.1f} s", flush=True)
 
 
 def timed_runs(fn, check):
@@ -307,15 +333,7 @@ def encode_phase(data: bytes, zlib6_len: int, card: str) -> dict:
     # ---- 7c. the match walk against its plain version on every batch's
     # inputs, and the integer stages on the card against the CPU
     bl = statics[0]
-    cfg = D.levels_mod.get_level(enc_kw["level"])
-    win = []
-    for call in calls:
-        length, dist = D.encode_batch(*call, *statics, stage="match")
-        blen = torch.clamp(call[2] - torch.arange(
-            statics[1], device="cuda") * bl, 0, bl)
-        take = lz77.parse_take(length, dist, blen, cfg.lazy, cfg.good_length)
-        cn, ln = lz77.walk_inputs(length, take, blen, bl)
-        win.append((cn, ln, blen.to(torch.int32)))
+    win = match_walk_inputs([(*c, *statics) for c in calls])
     err = match_walk_checks(win, bl)
     call_cpu = (calls[0][0].cpu(), *calls[0][1:])
     for stage in ("match", "walk"):
@@ -396,10 +414,10 @@ def corpus_halo(data: bytes, o0: int):
     return halo
 
 
-def card_share(stats: list, n: int) -> str:
-    """Who produced the n output bytes of one decompress, from its
-    last_stats: device batches up to the first that errs, host copies of
-    stored blocks, and the native decoder from the erring batch on."""
+def card_bytes(stats: list) -> tuple[int, int]:
+    """(bytes of device batches, bytes of stored copies) of one decompress,
+    from its last_stats: the batches up to the first that errs; the native
+    decoder produced the rest."""
     card = host = 0
     for k, p, e in stats:
         if e:
@@ -408,8 +426,110 @@ def card_share(stats: list, n: int) -> str:
             host += p
         else:
             card += p
+    return card, host
+
+
+def card_share(runs: list, n: int) -> str:
+    """Who produced the n output bytes of the decompress calls whose
+    last_stats are `runs`."""
+    card = sum(card_bytes(r)[0] for r in runs)
+    host = sum(card_bytes(r)[1] for r in runs)
     return (f"the card produced {card} B ({100 * card / n:.1f}%), stored "
             f"copies {host} B, the native decoder {n - card - host} B")
+
+
+def profile_slice(what: str, fn) -> None:
+    """profile_run of fn, a slice of a path (PROFILE_MB of its input): the
+    span from one run, then the profile of another. A profile of a whole
+    32 MiB path holds up to a million device events, whose analysis takes
+    minutes."""
+    _, _, span = one_run(fn)
+    profile_run(f"{what} (first {PROFILE_MB} MiB)", fn, span)
+
+
+def one_run(fn):
+    """fn() once: (result, wall on the host clock to a synchronise, device
+    span from CUDA events)."""
+    import torch
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    a.record()
+    res = fn()
+    b.record()
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0, a.elapsed_time(b) / 1e3
+
+
+@contextlib.contextmanager
+def wrapped(owner, name, before=None, after=None):
+    """Within the block, a call of owner.name first calls before(*args),
+    then after(args, kwargs, result, seconds) once it returns: how the
+    script sees the calls a path makes, to hold a kernel to its plain
+    version on their arguments or to time them."""
+    orig = getattr(owner, name)
+
+    def call(*a, **k):
+        if before is not None:
+            before(*a)
+        t0 = time.perf_counter()
+        r = orig(*a, **k)
+        if after is not None:
+            after(a, k, r, time.perf_counter() - t0)
+        return r
+
+    setattr(owner, name, call)
+    try:
+        yield
+    finally:
+        setattr(owner, name, orig)
+
+
+def checksum_calls(secs: list):
+    """Within the block, the host seconds of every ops.checksum crc32 and
+    adler32 call go to secs: each is a round trip (upload, reduction on
+    the card, readback of the value)."""
+    from jdeflate_tpu_torch.ops import checksum as cs
+    stack = contextlib.ExitStack()
+    for name in ("crc32", "adler32"):
+        stack.enter_context(wrapped(
+            cs, name, after=lambda a, k, r, sec: secs.append(sec)))
+    return stack
+
+
+def round_trips(secs: list, wall: float) -> str:
+    """The checksum calls of a run that took `wall` seconds: their count,
+    total and median. A call reads its value back, so it also waits for
+    the work queued on the card before it; the median is a call's own
+    cost where most calls wait for nothing."""
+    if not secs:
+        return "checksum round trips: none"
+    med = statistics.median(secs)
+    return (f"checksum round trips {len(secs)} calls, {sum(secs) * 1e3:.1f} "
+            f"ms ({100 * sum(secs) / wall:.1f}% of the wall), median "
+            f"{med * 1e3:.2f} ms/call (median x calls {med * len(secs) * 1e3:.1f} "
+            f"ms, {100 * med * len(secs) / wall:.1f}% of the wall)")
+
+
+def match_walk_inputs(calls: list) -> list:
+    """The match walk's inputs (cnext, len, block_len) of each encode batch,
+    from encode_batch's full argument tuples: the match stage and the
+    parse run again on the card."""
+    import torch
+    from jdeflate_tpu_torch.codec import deflate as D
+    from jdeflate_tpu_torch.ops import lz77
+    win = []
+    for call in calls:
+        total, bl, batch, level = call[2], call[5], call[6], call[7]
+        cfg = D.levels_mod.get_level(level)
+        length, dist = D.encode_batch(*call, stage="match")
+        blen = torch.clamp(
+            total - torch.arange(batch, device=length.device) * bl, 0, bl)
+        take = lz77.parse_take(length, dist, blen, cfg.lazy, cfg.good_length)
+        cn, ln = lz77.walk_inputs(length, take, blen, bl)
+        win.append((cn, ln, blen.to(torch.int32)))
+    return win
 
 
 def v5_phase(dec, raw: bytes, data: bytes, idx: dict, e2_errs: list,
@@ -596,7 +716,7 @@ def v5_phase(dec, raw: bytes, data: bytes, idx: dict, e2_errs: list,
               f"{len(data) / wall / 1e9:.4f} GB/s; device span "
               f"{span * 1e3:.1f} ms; runs "
               f"{[round(w * 1e3, 1) for w in walls]} ms; of the output, "
-              f"{card_share(dec.last_stats, len(data))}", flush=True)
+              f"{card_share([dec.last_stats], len(data))}", flush=True)
         profile_run("v5 decode", lambda: dec.decompress(raw, index=idx),
                     span)
     finally:
@@ -1177,7 +1297,7 @@ def anchored_phase(data: bytes, card: str) -> dict:
     print(f"anchored decode ({card}): wall {wall * 1e3:.1f} ms = "
           f"{len(part) / wall / 1e9:.4f} GB/s; device span "
           f"{span * 1e3:.1f} ms; runs {[round(w * 1e3, 1) for w in walls]} "
-          f"ms; of the output, {card_share(dec.last_stats, len(part))}",
+          f"ms; of the output, {card_share([dec.last_stats], len(part))}",
           flush=True)
     profile_run("anchored decode", lambda: dec.decompress(raw, index=index),
                 span)
@@ -1245,18 +1365,294 @@ def dense_phase(data: bytes, card: str) -> None:
     print(f"dense decode ({card}): wall {wall * 1e3:.1f} ms = "
           f"{len(part) / wall / 1e9:.4f} GB/s; device span "
           f"{span * 1e3:.1f} ms; runs {[round(w * 1e3, 1) for w in walls]} "
-          f"ms; of the output, {card_share(dec.last_stats, len(part))}",
+          f"ms; of the output, {card_share([dec.last_stats], len(part))}",
           flush=True)
 
 
-def walk_checks(per: list, calls: list) -> int:
+def zstream_phase(data: bytes, gz: bytes, card: str) -> int:
+    """Phase 11: ZStream on the card. Deflate: the corpus in writes of
+    ZS_WRITE bytes, one sync flush midway, through ZStream("deflate",
+    gzip, level 6, 64 KiB blocks in batches of 16); zlib must inflate it,
+    its CRC32 must be zlib's, and it must come in one piece per segment
+    with one match walk launch per non-empty segment. Inflate:
+    the zlib-6 gzip stream and trailing garbage fed in 1 MiB chunks.
+    Returns the match walk's launches on the deflate."""
+    from jdeflate_tpu_torch.ops import lz77
+    from jdeflate_tpu_torch.stream import zstrm
+    kw = dict(level=6, block_size=1 << 16, batch=16)
+    n, step, half = len(data), ZS_WRITE, len(data) // 2
+
+    def deflate(src=data):
+        pieces = []
+        z = zstrm.ZStream("deflate", format="gzip", target_fn=pieces.append,
+                          device="cuda", **kw)
+        for pos in range(0, len(src), step):
+            z.write(src[pos:pos + step])
+            if pos < len(src) // 2 <= pos + step:
+                z.flush(final=False)
+        z.flush(final=True)
+        return z, pieces
+
+    # ---- 11a. deflate, counts zeroed just before
+    secs = []
+    lz77.match_walk.launches = 0
+    with checksum_calls(secs):
+        (z, pieces), wall, span = one_run(deflate)
+    launches = lz77.match_walk.launches
+    blob = b"".join(pieces)
+    # segments: full ones of block_size x batch, the sync flush's cut after
+    # the write that reaches half, and the final flush's (maybe empty) one
+    seg = kw["block_size"] * kw["batch"]
+    cut = min(n, ((half - 1) // step + 1) * step)
+    nseg = -(-cut // seg) + (n - cut) // seg + 1
+    nonempty = -(-cut // seg) + -(-(n - cut) // seg)
+    if zlib.decompress(blob, 31) != data:
+        fail("zlib does not inflate the ZStream deflate to the corpus")
+    if (z.crc32, z.total_in, z.total_out) != (zlib.crc32(data), n,
+                                              len(blob)):
+        fail(f"ZStream counters: crc32 {z.crc32:#x} (zlib "
+             f"{zlib.crc32(data):#x}), total_in {z.total_in}, total_out "
+             f"{z.total_out} of {len(blob)}")
+    if len(pieces) != nseg + 2 or launches != nonempty:
+        fail(f"ZStream deflate: {len(pieces)} pieces for {nseg} "
+             f"segments, match walk launches {launches} != {nonempty}")
+    print(f"ZStream deflate main path: {n} B in writes of {step} B, a sync "
+          f"flush at {cut} B -> {len(blob)} B gzip in {nseg} segments; "
+          f"zlib inflates it; crc32 {z.crc32:#010x} = zlib's; match walk "
+          f"launches {launches} = non-empty segments", flush=True)
+    print(f"ZStream deflate ({card}): wall {wall * 1e3:.1f} ms = "
+          f"{n / wall / 1e9:.4f} GB/s; device span {span * 1e3:.1f} ms; "
+          f"{round_trips(secs, wall)}", flush=True)
+    profile_slice("ZStream deflate",
+                  lambda: deflate(data[:PROFILE_MB << 20]))
+
+    stamp("11b")
+    # ---- 11b. inflate of the zlib-6 gzip stream with trailing garbage
+    garbage = b"TRAILING GARBAGE"
+
+    def inflate(feed=gz + garbage):
+        zi = zstrm.ZStream("inflate", format="gzip", device="cuda")
+        out = bytearray()
+        for i in range(0, len(feed), 1 << 20):
+            zi.feed(feed[i:i + (1 << 20)])
+            out += zi.read()
+        out += zi.finish()
+        return zi, bytes(out)
+
+    isecs = []
+    with checksum_calls(isecs):
+        (zi, out), iwall, ispan = one_run(inflate)
+    if out != data or zi.used_input != len(gz) or zi.unused_data != garbage:
+        fail(f"ZStream inflate: bytes ok {out == data}, used_input "
+             f"{zi.used_input} of {len(gz)}, unused {zi.unused_data[:32]!r}")
+    print(f"ZStream inflate main path: {len(gz)} B gzip + {len(garbage)} B "
+          f"of garbage fed in 1 MiB chunks -> {len(out)} B = the corpus; "
+          f"used_input {zi.used_input} = the stream, unused_data = the "
+          f"garbage", flush=True)
+    print(f"ZStream inflate ({card}): wall {iwall * 1e3:.1f} ms = "
+          f"{n / iwall / 1e9:.4f} GB/s; device span {ispan * 1e3:.1f} ms; "
+          f"{round_trips(isecs, iwall)}", flush=True)
+    profile_run("ZStream inflate", inflate, ispan)
+    return launches
+
+
+def sharded_phase(data: bytes, card: str) -> tuple:
+    """Phase 12: ShardedDeflater on SHARD_RANKS ranks of cuda:0 at the
+    reference's defaults (64 KiB blocks, 8 per shard). Members mode over
+    the corpus, then decompress_members on the card; stream mode over the
+    first SHARD_STREAM_MB MiB; a verify=True run there whose fault hook
+    corrupts one shard. The match walk is held to its plain version on the
+    members encode's batches, the walk and the token expansion on the
+    member decodes'. Returns (match walk launches by path, its max abs err,
+    windowed batches of decompress_members, walk and expand2 max abs err).
+    """
+    import torch
+    from jdeflate_tpu_torch.codec import deflate as D
+    from jdeflate_tpu_torch.codec import inflate as I
+    from jdeflate_tpu_torch.ops import expand2 as ex2
+    from jdeflate_tpu_torch.ops import lz77
+    from jdeflate_tpu_torch.ops import walk as wk
+    from jdeflate_tpu_torch.parallel import shard
+    mesh = [torch.device("cuda", 0)] * SHARD_RANKS
+    launches = {}
+
+    # ---- 12a. members mode over the corpus, counts zeroed just before
+    enc = shard.ShardedDeflater(mesh=mesh, level=6)
+    nshard = -(-len(data) // (enc.bl * enc.bpd))
+    calls, secs = [], []
+    lz77.match_walk.launches = 0
+    with wrapped(D, "encode_batch",
+                 after=lambda a, k, r, sec: calls.append(a)), \
+            checksum_calls(secs):
+        (blob, info), wall, span = one_run(lambda: enc.compress(data))
+    launches["sharded_members"] = lz77.match_walk.launches
+    if launches["sharded_members"] != nshard or len(calls) != nshard \
+            or len(info["members"]) != nshard:
+        fail(f"sharded members: {launches['sharded_members']} match walk "
+             f"launches, {len(calls)} encodes, {len(info['members'])} "
+             f"members for {nshard} shards")
+    if gzip.decompress(blob) != data:
+        fail("gzip does not decompress the sharded members blob")
+    print(f"sharded members main path: {len(data)} B on {SHARD_RANKS} ranks "
+          f"of cuda:0 -> {len(blob)} B in {nshard} gzip members; gzip "
+          f"decompresses it; match walk launches "
+          f"{launches['sharded_members']} = shards", flush=True)
+    print(f"sharded members encode ({card}): wall {wall * 1e3:.1f} ms = "
+          f"{len(data) / wall / 1e9:.4f} GB/s; device span "
+          f"{span * 1e3:.1f} ms; {round_trips(secs, wall)}", flush=True)
+    profile_slice("sharded members encode",
+                  lambda: enc.compress(data[:PROFILE_MB << 20]))
+
+    stamp("12b")
+    # ---- 12b. decompress_members on the card, counts zeroed just before;
+    # every member decode keeps its batches' device arguments
+    rec = []
+
+    def keep(dec, *_):
+        dec.capture_calls = True
+
+    def seen(a, k, r, sec):
+        rec.append((a[1], k["index"], list(a[0].last_stats),
+                    list(a[0].last_calls)))
+
+    wk.walk_checked.launches = 0
+    ex2.expand_tokens.launches = 0
+    dsecs = []
+    with wrapped(I.RawInflater, "decompress", before=keep, after=seen), \
+            checksum_calls(dsecs):
+        out, dwall, dspan = one_run(
+            lambda: shard.decompress_members(blob, info, device="cuda"))
+    dm = {"walk": wk.walk_checked.launches,
+          "expand2": ex2.expand_tokens.launches}
+    nwin = sum(len(r[3]) for r in rec)
+    if out != data or len(rec) != nshard or nwin == 0 \
+            or dm != {"walk": nwin, "expand2": nwin}:
+        fail(f"decompress_members: bytes ok {out == data}, {len(rec)} "
+             f"member decodes, launches {dm} for {nwin} windowed batches")
+    errs = [(i, e) for i, r in enumerate(rec) for _, _, e in r[2] if e]
+    print(f"decompress_members main path: {nshard} members, {nwin} "
+          f"windowed batches, launches {dm}, erring batches {errs or 'none'}"
+          f"; of the output, {card_share([r[2] for r in rec], len(data))}",
+          flush=True)
+    # the first member and each erring one: the CPU encode of its input
+    # gives the card's member bytes, and the CPU decode of the member the
+    # same batches, bytes produced and err decisions
+    shard_bytes = enc.bl * enc.bpd
+    held, cpu_errs = sorted({0} | {i for i, _ in errs}), []
+    for i in held:
+        part = data[i * shard_bytes:(i + 1) * shard_bytes]
+        cblob, _ = shard.ShardedDeflater(mesh=["cpu"], level=6).compress(part)
+        mstart, mlen = info["members"][i][:2]
+        body, index, stats, _ = rec[i]
+        cdec = I.RawInflater(device="cpu")
+        cout = cdec.decompress(body, index=index)
+        cpu_errs += [(i, e) for _, _, e in cdec.last_stats if e]
+        if cblob != blob[mstart:mstart + mlen] or cout != part or [
+                (k, p, e > 0) for k, p, e in cdec.last_stats] != [
+                (k, p, e > 0) for k, p, e in stats]:
+            fail(f"member {i}: the CPU gives other bytes or decisions "
+                 f"({cdec.last_stats} against the card's {stats})")
+    print(f"members {held}: the CPU encode gives the card's member bytes and "
+          f"the CPU decode the same batches, bytes produced and err "
+          f"decisions (errs on the CPU {cpu_errs or 'none'}; on the card the "
+          f"token expansion's err is produced > out_cap, as in the "
+          f"reference's kernel path, so the counts may differ)", flush=True)
+    print(f"decompress_members ({card}): wall {dwall * 1e3:.1f} ms = "
+          f"{len(data) / dwall / 1e9:.4f} GB/s; device span "
+          f"{dspan * 1e3:.1f} ms; {round_trips(dsecs, dwall)}", flush=True)
+    k = min((PROFILE_MB << 20) // (enc.bl * enc.bpd), nshard - 1)
+    head = {**info, "members": info["members"][:k]}
+    profile_slice("decompress_members", lambda: shard.decompress_members(
+        blob[:info["members"][k][0]], head, device="cuda"))
+
+    stamp("12c")
+    # ---- 12c. B3 on the members encode's batches, B1 and B2 on the member
+    # decodes' batches, against their plain versions
+    b3_err = match_walk_checks(match_walk_inputs(calls), enc.bl,
+                               synthetic=False)
+    per, flat, offs = [], [], []
+    o0 = 0
+    plan = I.RawInflater(device="cuda")
+    for body, index, _, mcalls in rec:
+        offs += [(o0 + a, b) for a, b in batch_offsets(plan, body, index,
+                                                       "win")]
+        for words, metas, row, halo, npe, nb, oc, ww in mcalls:
+            args = I._walk_inputs(words, metas[row], npe, nb, ww)
+            e2 = int(I._decode_from_meta(words, metas[row], halo, npe, nb,
+                                         oc, ww)[2])
+            per.append((args, halo, oc, e2))
+            flat.append((words, metas, row, halo, npe, nb, oc, ww))
+        o0 += index["n"]
+    walk_err = walk_checks(per, flat, synthetic=False)
+    exp_err = expand2_checks(per, offs, data, synthetic=False)
+    print(f"the match walk equals its plain version on all {len(calls)} "
+          f"sharded encode batches; the walk and the token expansion on all "
+          f"{len(per)} member decode batches (max abs err "
+          f"{max(b3_err, walk_err, exp_err)})", flush=True)
+
+    stamp("12d")
+    # ---- 12d. stream mode over the first SHARD_STREAM_MB MiB
+    part = data[:SHARD_STREAM_MB << 20]
+    senc = shard.ShardedDeflater(mesh=mesh, level=6, mode="stream")
+    lz77.match_walk.launches = 0
+    ssecs = []
+    with checksum_calls(ssecs):
+        (sblob, _), swall, sspan = one_run(lambda: senc.compress(part))
+    launches["sharded_stream"] = lz77.match_walk.launches
+    want = -(-len(part) // (senc.bl * senc.bpd))
+    crc, isize = struct.unpack("<II", sblob[-8:])
+    if gzip.decompress(sblob) != part or crc != zlib.crc32(part) \
+            or isize != len(part) or launches["sharded_stream"] != want:
+        fail(f"sharded stream: crc {crc:#x} (zlib {zlib.crc32(part):#x}), "
+             f"isize {isize}, match walk launches "
+             f"{launches['sharded_stream']} != {want}")
+    print(f"sharded stream main path: {len(part)} B -> {len(sblob)} B, one "
+          f"gzip stream; the combined crc32 {crc:#010x} = zlib's; match "
+          f"walk launches {launches['sharded_stream']} = shards", flush=True)
+    print(f"sharded stream encode ({card}): wall {swall * 1e3:.1f} ms = "
+          f"{len(part) / swall / 1e9:.4f} GB/s; device span "
+          f"{sspan * 1e3:.1f} ms; {round_trips(ssecs, swall)}", flush=True)
+    profile_slice("sharded stream encode",
+                  lambda: senc.compress(part[:PROFILE_MB << 20]))
+
+    stamp("12e")
+    # ---- 12e. verify=True, one shard corrupted: one retry, right output
+    renc = shard.ShardedDeflater(mesh=mesh, level=6, verify=True)
+    killed = []
+
+    def hook(k, seg):
+        if k == 1 and not killed:
+            killed.append(k)
+            return seg[:4] + bytes(8) + seg[12:]
+        return seg
+
+    renc.fault_hook = hook
+    lz77.match_walk.launches = 0
+    (rblob, rinfo), rwall, _ = one_run(lambda: renc.compress(part))
+    launches["sharded_retry"] = lz77.match_walk.launches
+    shard_bytes = renc.bl * renc.bpd
+    if renc.retries != [(shard_bytes, shard_bytes)] \
+            or launches["sharded_retry"] != want + 1:
+        fail(f"fault retry: retries {renc.retries}, match walk launches "
+             f"{launches['sharded_retry']} != {want + 1}")
+    if gzip.decompress(rblob) != part or shard.decompress_members(
+            rblob, rinfo, device="cuda") != part:
+        fail("fault retry: the blob does not decode to the input")
+    print(f"sharded fault retry: shard 1 corrupted, retries {renc.retries}, "
+          f"match walk launches {launches['sharded_retry']} = {want} shards "
+          f"+ 1 re-encode; gzip and decompress_members give the input; wall "
+          f"{rwall * 1e3:.1f} ms", flush=True)
+    return launches, b3_err, nwin, walk_err, exp_err
+
+
+def walk_checks(per: list, calls: list, synthetic: bool = True) -> int:
     """Kernel B1 (csrc/walk.cu) against its plain version: on every
     windowed batch, tokens and meta against walk_windows_ref and outlen,
-    laneoff and err against walk_checked_ref; then the adversarial changes
-    of adversarial_windows to three batches (the first, the one with the
-    most pseudo-entries, the one whose segment clamps). per: (walk args,
-    halo, out_cap, engine-2 err) of each batch; calls: the captured device
-    arguments. Returns the max abs err."""
+    laneoff and err against walk_checked_ref; then (synthetic) the
+    adversarial changes of adversarial_windows to three batches (the first,
+    the one with the most pseudo-entries, the one whose segment clamps).
+    per: (walk args, halo, out_cap, engine-2 err) of each batch; calls: the
+    captured device arguments. Returns the max abs err."""
     import torch
     from jdeflate_tpu_torch.codec import inflate as I
     from jdeflate_tpu_torch.ops import walk as wk
@@ -1269,6 +1665,8 @@ def walk_checks(per: list, calls: list) -> int:
         err = max(err, held(args))
     if err:
         fail(f"walk kernel differs from its plain version: {err}")
+    if not synthetic:
+        return err
     pick = {0, max(range(len(calls)), key=lambda i: calls[i][4])}
     pick |= {i for i, c in enumerate(calls) if clamps_segment(c)}
     names = set()
@@ -1290,15 +1688,16 @@ def walk_checks(per: list, calls: list) -> int:
     return err
 
 
-def expand2_checks(per: list, offs: list, data: bytes) -> int:
+def expand2_checks(per: list, offs: list, data: bytes,
+                   synthetic: bool = True) -> int:
     """Kernel B2 (csrc/expand.cu) against its plain version and the corpus.
     per: (walk args, halo, out_cap, engine-2 err) of each windowed batch;
     offs: each batch's (output offset, length). On every batch at err 0,
     behind the corpus's own 32 KiB: the card's bytes equal the plain
-    version's and the corpus slice; then literal-run annotation changes no
-    byte, three runs on the largest batch give the same bytes, and every
-    synthetic adversarial stream (2 MiB each) equals the plain version.
-    Returns the max abs err."""
+    version's and the corpus slice; then (synthetic) literal-run
+    annotation changes no byte, three runs on the largest batch give the
+    same bytes, and every synthetic adversarial stream (2 MiB each) equals
+    the plain version. Returns the max abs err."""
     import torch
     from jdeflate_tpu_torch.ops import expand2 as ex2
     from jdeflate_tpu_torch.ops import walk as wk
@@ -1325,6 +1724,8 @@ def expand2_checks(per: list, offs: list, data: bytes) -> int:
     if err or checked == 0:
         fail(f"expand2 differs from its plain version ({err}) or no batch "
              "was held")
+    if not synthetic:
+        return err
     n, tok, outlen, halo, oc = largest
     ann = ex2.expand_tokens(wk.annotate_lit_runs(tok), outlen, halo, oc)[0]
     runs = [ex2.expand_tokens(tok, outlen, halo, oc)[0][:n].clone()
@@ -1356,10 +1757,11 @@ def expand2_checks(per: list, offs: list, data: bytes) -> int:
     return err
 
 
-def match_walk_checks(win: list, bl: int) -> int:
+def match_walk_checks(win: list, bl: int, synthetic: bool = True) -> int:
     """Kernel B3 (csrc/lz77walk.cu) against its plain version on every
-    encode batch's inputs (win: (cnext, len, block_len) per batch) and on
-    the synthetic adversarial cases. Returns the max abs err."""
+    encode batch's inputs (win: (cnext, len, block_len) per batch) and
+    (synthetic) on the synthetic adversarial cases. Returns the max abs
+    err."""
     import torch
     from jdeflate_tpu_torch.ops import lz77
     err = 0
@@ -1368,6 +1770,8 @@ def match_walk_checks(win: list, bl: int) -> int:
                                    [lz77.match_walk_ref(cn, ln, blen, bl)]))
     if err:
         fail(f"match walk differs from its plain version: {err}")
+    if not synthetic:
+        return err
     names = []
     for name, length, take, block_len in adversarial_walks(seed=0, bl=bl):
         blt = torch.from_numpy(block_len).cuda()
@@ -1487,7 +1891,7 @@ def main() -> None:
           + (f"{c5}: native re-decode from windowed batch {c5[0][0]} on "
              f"({len(data) - sum(p for _, p, _ in stats[:-1])} B)"
              if c5 else "none"), flush=True)
-    print(f"decode output: {card_share(stats, len(data))}", flush=True)
+    print(f"decode output: {card_share([stats], len(data))}", flush=True)
     outg = zstrm.decompress(gz, index=idx, header_len=hl, device="cuda")
     if outg != data:
         fail("gzip decode differs from the corpus")
@@ -1582,7 +1986,7 @@ def main() -> None:
           f"{len(data) / wall / 1e9:.4f} GB/s; device span "
           f"{span * 1e3:.1f} ms = {len(data) / span / 1e9:.4f} GB/s; "
           f"runs {[round(w * 1e3, 1) for w in walls]} ms; of the output, "
-          f"{card_share(dec.last_stats, len(data))}", flush=True)
+          f"{card_share([dec.last_stats], len(data))}", flush=True)
     print(f"walk ({card}): {statistics.mean(walk_ms):.3f} ms/launch x "
           f"{launches['walk']} (per batch {[round(x, 3) for x in walk_ms]}); "
           f"plain {statistics.mean(walk_plain):.3f} ms; bound "
@@ -1598,16 +2002,31 @@ def main() -> None:
           f"kernels' device time {exp_dev:.4f} ms/launch", flush=True)
     profile_run("decode", lambda: dec.decompress(raw, index=idx), span)
 
+    stamp("encode phase")
     enc_kernel = encode_phase(data, len(raw), card)
+    stamp("v5 phase")
     v5_kernels = v5_phase(dec, raw, data, idx, e2_errs, card)
+    stamp("anchored phase")
     anch_kernel = anchored_phase(data, card)
+    stamp("dense phase")
     dense_phase(data, card)
+    stamp("ZStream phase")
+    zs_launches = zstream_phase(data, gz, card)
+    stamp("sharded phase")
+    sh_launches, sh_b3_err, dm_launches, dm_walk_err, dm_exp_err = \
+        sharded_phase(data, card)
+    stamp("done")
+    enc_kernel["path_launches"] = {"zstream_deflate": zs_launches,
+                                   **sh_launches}
+    enc_kernel["max_abs_err"] = max(enc_kernel["max_abs_err"], sh_b3_err)
 
     kernels = [
         {"name": "walk", "route": "cuda",
          "source": "jdeflate_tpu_torch/csrc/walk.cu",
          "replaces": "jdeflate_tpu/ops/walk.py:266",
-         "launches": launches["walk"], "max_abs_err": walk_err,
+         "launches": launches["walk"],
+         "path_launches": {"decompress_members": dm_launches},
+         "max_abs_err": max(walk_err, dm_walk_err),
          "ms": statistics.mean(walk_ms), "dev_ms": walk_dev,
          "plain_ms": statistics.mean(walk_plain),
          "bound_ms": statistics.mean(walk_bound), "bound_by": "bytes",
@@ -1615,7 +2034,9 @@ def main() -> None:
         {"name": "expand2", "route": "cuda",
          "source": "jdeflate_tpu_torch/csrc/expand.cu",
          "replaces": "jdeflate_tpu/ops/expand2.py:47",
-         "launches": launches["expand2"], "max_abs_err": exp_err,
+         "launches": launches["expand2"],
+         "path_launches": {"decompress_members": dm_launches},
+         "max_abs_err": max(exp_err, dm_exp_err),
          "ms": statistics.mean(exp_ms), "dev_ms": exp_dev,
          "plain_ms": statistics.mean(exp_plain),
          "bound_ms": statistics.mean(exp_bound), "bound_by": "bytes",

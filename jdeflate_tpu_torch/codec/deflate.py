@@ -667,6 +667,43 @@ def index_entries_from_meta(bl: int, batch: int, startf, hdr_off, gwin,
     return index_bits, index_bytes, win_out
 
 
+def batch_handle(res):
+    """What the host reads of one encode_batch result: (words, meta,
+    wanch), with the small per-block meta (total bits, stored flags, start
+    flags, header offsets, window counts) in one device tensor, so a
+    readback moves it at once."""
+    words, total, _, _, start_f, hdr_off, gwin, wanch, stored = res
+    meta = torch.cat([total.reshape(1), stored.to(_I64),
+                      start_f.reshape(-1).to(_I64), hdr_off.reshape(-1),
+                      gwin.reshape(-1)])
+    return words, meta, wanch
+
+
+def read_batch(handle, batch: int, nch: int):
+    """Read one batch_handle back: (total bits, the word bytes covering
+    them, stored flags, start flags, header offsets, window counts, window
+    anchors). Only the produced words and the used prefix of each block's
+    anchor row move. Words are u32 values in int64, so they are narrowed
+    to little-endian u32 before the bytes are taken."""
+    words, meta_dev, wanch_dev = handle
+    m = meta_dev.cpu().numpy()
+    total = int(m[0])
+    o = 1
+    stored_h = m[o:o + batch]
+    o += batch
+    startf = m[o:o + batch * nch].reshape(batch, nch)
+    o += batch * nch
+    hdr_off = m[o:o + batch * nch].reshape(batch, nch)
+    o += batch * nch
+    gwin = m[o:o + batch * nch].reshape(batch, nch)
+    used = int(gwin.sum(axis=1).max()) if gwin.size else 0
+    used = min(max(used, 1), wanch_dev.shape[1])
+    wanch = wanch_dev[:, :used].cpu().numpy()
+    total_w = min((total + 31) // 32 + 1, words.shape[0])
+    wb = words[:total_w].cpu().numpy().astype("<u4").view(np.uint8)
+    return total, wb, stored_h, startf, hdr_off, gwin, wanch
+
+
 class RawDeflater:
     """Host driver producing a complete raw DEFLATE stream (RFC 1951) and
     its parallel-decode index, encoding on `device`.
@@ -742,33 +779,16 @@ class RawDeflater:
             if self.capture_calls:
                 self.last_calls.append(args)
                 self.call_statics = statics
-            (words, total, per_block, _, start_f, hdr_off, gwin, wanch,
-             stored) = encode_batch(*args, *statics)
-            meta = torch.cat([total.reshape(1), stored.to(_I64),
-                              start_f.reshape(-1).to(_I64),
-                              hdr_off.reshape(-1), gwin.reshape(-1)])
-            handles.append((b0, words, meta, wanch))
+            handles.append((b0, batch_handle(encode_batch(*args,
+                                                          *statics))))
 
         # Phase 2: read back (the small meta first, then only the produced
         # words and the used prefix of each block's anchor row) and assemble
         out = bytearray()
         index_bits, index_bytes, sync_points, anchors_out = [], [], [], []
-        for b0, words, meta_dev, wanch_dev in handles:
-            m = meta_dev.cpu().numpy()
-            total = int(m[0])
-            o = 1
-            stored_h = m[o:o + batch]
-            o += batch
-            startf = m[o:o + batch * nch].reshape(batch, nch)
-            o += batch * nch
-            hdr_off = m[o:o + batch * nch].reshape(batch, nch)
-            o += batch * nch
-            gwin = m[o:o + batch * nch].reshape(batch, nch)
-            used = int(gwin.sum(axis=1).max()) if gwin.size else 0
-            used = min(max(used, 1), wanch_dev.shape[1])
-            wanch = wanch_dev[:, :used].cpu().numpy()
-            total_w = min((total + 31) // 32 + 1, nw)
-            wb = words[:total_w].cpu().numpy().astype("<u4").view(np.uint8)
+        for b0, handle in handles:
+            total, wb, stored_h, startf, hdr_off, gwin, wanch = read_batch(
+                handle, batch, nch)
             base_bits = len(out) * 8
             ib, iy, ia = index_entries_from_meta(
                 bl, batch, startf, hdr_off, gwin, wanch, stored_h,

@@ -1,0 +1,260 @@
+"""Data-parallel sharded compression over a mesh of devices.
+
+The input splits into shards of blocks_per_device x block_size bytes; each
+round gives rank k of the mesh shard k, and every rank runs the whole
+block-batch encode (codec.deflate.encode_batch) on its shard on its own
+device, with no traffic between ranks while it computes (the DEFLATE window
+bound makes shards independent). Every rank's encode is launched before
+anything is read back, so ranks on different cards overlap. What the JAX
+package does with collectives the host does here:
+
+  (a) each shard's compressed bit length is read back with its meta (the
+      all-gather of the lengths);
+  (b) members are laid out in rank order (the exclusive scan of lengths);
+  (c) each shard's produced words are read back and concatenated;
+  (d) the shards' crc32s, computed on their ranks' devices, are combined
+      with the GF(2) algebra (ops.checksum.crc32_combine; the reference's
+      crc32_ncombine, src/zstrm.c:1427-1443). The gzip trailer takes the
+      crc32 only, so no adler32 is computed.
+
+Two output modes:
+  members: each shard becomes a complete gzip member; the concatenated
+    members are a valid multi-member gzip file (RFC 1952 §2.2), and decode
+    is parallel over members too (decompress_members).
+  stream: one deflate stream; shard k sees the 32 KiB before it as a
+    preset-dictionary halo (a better ratio; shards join at sync-flush
+    seams).
+"""
+from __future__ import annotations
+
+import zlib
+
+import numpy as np
+import torch
+
+from ..codec import deflate as De
+from ..codec import levels
+from ..codec.inflate import RawInflater
+from ..formats import headers as H
+from ..ops import checksum as cs
+from ..stream import host_inflate as hi
+from ..stream import native, zstrm
+from ..utils import device as _device
+from .mesh import make_mesh
+
+HALO = De.HALO
+PAD = De.PAD
+
+
+def encode_sharded(data_sh, shard_lens, dict_lens, final_blocks, bl: int,
+                   bpd: int, level: int, num_words: int) -> list:
+    """Encode every rank's shard on the rank's device.
+
+    data_sh: per rank, a (HALO + bpd*bl + PAD,) uint8 tensor on its device
+      (None for an empty shard); shard_lens, dict_lens, final_blocks: per
+      rank ints (final_blocks: the index of the BFINAL block, or -1).
+    Returns per rank the batch_handle of its encode_batch result on its
+    device (None for an empty shard, which launches nothing). Nothing is
+    read back.
+    """
+    return [De.batch_handle(De.encode_batch(d, 0, n, dl, fin, bl, bpd, level,
+                                            num_words)) if n else None
+            for d, n, dl, fin in zip(data_sh, shard_lens, dict_lens,
+                                     final_blocks)]
+
+
+def checksums_sharded(data_sh, shard_lens) -> list:
+    """Each shard's crc32, computed on its rank's device (0 for an empty
+    shard)."""
+    return [cs.crc32(d[HALO:HALO + n]) if n else 0
+            for d, n in zip(data_sh, shard_lens)]
+
+
+class ShardedDeflater:
+    """Mesh-parallel compression, run from the host.
+
+    mesh: a sequence of devices, one per rank (repeats allowed), or None
+    for every CUDA device (parallel.mesh.make_mesh()).
+    """
+
+    def __init__(self, mesh=None, level: int = 6, block_size: int = 1 << 16,
+                 blocks_per_device: int = 8, mode: str = "members",
+                 verify: bool = False):
+        if mode not in ("members", "stream"):
+            raise ValueError(mode)
+        mesh = make_mesh() if mesh is None else mesh
+        self.mesh = tuple(_device.resolve(d) for d in mesh)
+        self.level = level
+        self.bl = block_size
+        self.bpd = blocks_per_device
+        self.mode = mode
+        # Elastic recovery (SURVEY §5): shards are independent, so a failed
+        # shard's range can be re-encoded alone and spliced in. verify=True
+        # decodes every shard against its source bytes after readback (the
+        # failure detector); a failed shard is encoded again on its rank's
+        # device.
+        self.verify = verify
+        # test seam: fault_hook(k, seg_bytes) -> seg_bytes (possibly
+        # corrupted) lets tests kill one shard's result
+        self.fault_hook = None
+        self.retries: list = []
+
+    def _shard_ok(self, seg_bytes: bytes, src: np.ndarray, s: int,
+                  ln: int) -> bool:
+        """Failure detector: the shard's compressed bytes must decode back
+        to its exact source range."""
+        window = src[max(0, s - HALO):s].tobytes()
+        try:
+            if native.available():
+                out, _, _ = native.inflate(seg_bytes, window,
+                                           out_cap=max(ln, 1 << 12))
+            else:
+                out, _, _ = hi.inflate_raw(seg_bytes, window)
+        except Exception:
+            return False
+        return out[:ln] == src[s:s + ln].tobytes()
+
+    def _reencode_shard(self, src: np.ndarray, s: int, ln: int,
+                        final: bool, device):
+        """Retry path: encode one shard's range again on its own (members
+        are independent; a stream shard sees its halo as a dictionary)."""
+        enc = De.RawDeflater(level=self.level, block_size=self.bl,
+                             batch=min(self.bpd, (ln + self.bl - 1)
+                                       // self.bl) or 1, device=device)
+        window = src[max(0, s - HALO):s].tobytes() \
+            if self.mode == "stream" else b""
+        return enc.compress(src[s:s + ln].tobytes(), dictionary=window,
+                            final=final)
+
+    @property
+    def ndev(self) -> int:
+        return len(self.mesh)
+
+    def compress(self, data: bytes):
+        """Returns (blob, info). members mode: a multi-member gzip file, and
+        in info each member's (offset, length, input bytes, index). stream
+        mode: one gzip stream with the combined checksum."""
+        bl, bpd, d = self.bl, self.bpd, self.ndev
+        shard_bytes = bl * bpd
+        n = len(data)
+        if n == 0:
+            empty = H.emit_gzip_header() + b"\x03\x00" \
+                + H.emit_gzip_trailer(0, 0)
+            if self.mode == "members":
+                return empty, {"mode": "members",
+                               "members": [(0, len(empty), 0)], "n": 0}
+            return empty, {"mode": "stream", "n": 0}
+        arr = np.frombuffer(data, np.uint8)
+        chunk = levels.get_level(self.level).chunk
+        nch = De._nch(bl, chunk)
+        nw = De.words_bound(bl, bpd, chunk)
+
+        out = bytearray()
+        members = []
+        crc_total = 0
+        for pos in range(0, n, d * shard_bytes):
+            lens = [0] * d
+            dls = [0] * d
+            fins = [-1] * d
+            data_sh = [None] * d
+            for k in range(d):
+                s = pos + k * shard_bytes
+                ln = max(0, min(n - s, shard_bytes))
+                if not ln:
+                    continue
+                lens[k] = ln
+                buf = np.zeros(HALO + shard_bytes + PAD, np.uint8)
+                buf[HALO:HALO + ln] = arr[s:s + ln]
+                if self.mode == "stream" and s > 0:
+                    h = min(HALO, s)
+                    buf[HALO - h:HALO] = arr[s - h:s]
+                    dls[k] = h
+                if self.mode == "members" or s + ln >= n:
+                    fins[k] = (ln - 1) // bl
+                data_sh[k] = torch.from_numpy(buf).to(self.mesh[k])
+            handles = encode_sharded(data_sh, lens, dls, fins, bl, bpd,
+                                     self.level, nw)
+            crcs = checksums_sharded(data_sh, lens)
+            for k in range(d):
+                ln = lens[k]
+                if ln == 0:
+                    continue
+                s = pos + k * shard_bytes
+                total, body, st, sf, ho, gw, an = De.read_batch(
+                    handles[k], bpd, nch)
+                final = s + ln >= n
+                if self.mode == "members" or final:
+                    seg_bytes = body[: (total + 7) // 8].tobytes()
+                else:
+                    # sync flush: 3 zero bits (BFINAL=0, BTYPE=00) + pad +
+                    # 00 00 ff ff; no padding to 4 bytes
+                    seg_bytes = (body[: (total + 3 + 7) // 8].tobytes()
+                                 + b"\x00\x00\xff\xff")
+                if self.fault_hook is not None:
+                    seg_bytes = self.fault_hook(k, seg_bytes)
+                index = None
+                if self.verify or self.fault_hook is not None:
+                    probe = seg_bytes if (self.mode == "members" or final) \
+                        else seg_bytes + b"\x03\x00"
+                    if not self._shard_ok(probe, arr, s, ln):
+                        # the failed rank's crc32 is not trusted either: it
+                        # is taken again from the source bytes on the host
+                        seg_bytes, index = self._reencode_shard(
+                            arr, s, ln,
+                            final=(self.mode == "members") or final,
+                            device=self.mesh[k])
+                        crcs[k] = zlib.crc32(arr[s:s + ln])
+                        self.retries.append((s, ln))
+                if self.mode == "members":
+                    mstart = len(out)
+                    hdr = H.emit_gzip_header()
+                    out += hdr
+                    out += seg_bytes
+                    out += H.emit_gzip_trailer(crcs[k], ln)
+                    if index is None:
+                        ib, iy, ia = De.index_entries_from_meta(
+                            bl, bpd, sf, ho, gw, an, st, (ln + bl - 1) // bl,
+                            ln, 0, 0, chunk)
+                        index = {"block_bits": ib, "block_bytes": iy,
+                                 "win": ia, "sync_points": [], "n": ln}
+                    index["header_len"] = len(hdr)
+                    members.append((mstart, len(out) - mstart, ln, index))
+                else:
+                    out += seg_bytes
+                    crc_total = cs.crc32_combine(crc_total, crcs[k], ln)
+
+        if self.mode == "members":
+            return bytes(out), {"mode": "members", "members": members,
+                                "n": n}
+        blob = (H.emit_gzip_header() + bytes(out)
+                + H.emit_gzip_trailer(crc_total, n))
+        return blob, {"mode": "stream", "n": n}
+
+
+def decompress_members(blob: bytes, info=None, device="cuda") -> bytes:
+    """Decode a (possibly multi-member) gzip file (RFC 1952 §2.2) on
+    `device`.
+
+    With `info` from ShardedDeflater (each member's parallel-decode index),
+    every member decodes through the windowed device path, each trailer
+    checked. Without it, the one-shot multi-member decoder
+    (stream.zstrm.decompress) takes the file.
+    """
+    if info and info.get("mode") == "members" and info.get("members"):
+        dec = RawInflater(device=device)
+        out = bytearray()
+        for m in info["members"]:
+            if len(m) >= 4 and isinstance(m[3], dict):
+                mstart, mlen, _, index = m
+                hl = index["header_len"]
+                body = blob[mstart + hl: mstart + mlen - 8]
+                o = dec.decompress(body, index=index)
+                H.check_gzip_trailer(blob[mstart + mlen - 8: mstart + mlen],
+                                     cs.crc32(o, device=dec.device), len(o))
+                out += o
+            else:
+                mstart, mlen = m[0], m[1]
+                out += zstrm.decompress(blob[mstart:mstart + mlen],
+                                        format="gzip", device=device)
+        return bytes(out)
+    return zstrm.decompress(blob, format="gzip", device=device)

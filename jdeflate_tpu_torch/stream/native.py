@@ -252,3 +252,38 @@ def inflate(raw: bytes, dictionary: bytes = b"", start_bit: int = 0,
             records.append(rec)
     return dst[:int(dstlen.value)].tobytes(), records, int(endbit.value)
 
+
+
+def inflate_partial(raw: bytes, dictionary: bytes = b"", start_bit: int = 0,
+                    out_cap: int | None = None):
+    """Decode as many complete blocks as the buffered input holds.
+
+    Returns (out_bytes, end_bit, complete): end_bit is the bit offset of the
+    first block not decoded (where to resume once more input arrives);
+    complete is True when a BFINAL block ended the stream. The substrate of
+    the bounded-memory streaming inflate (the reference drives its 32 KiB
+    window the same way, src/zstrm.c:792-958).
+    """
+    lib = get_lib()
+    if lib is None:
+        raise RuntimeError("native library unavailable")
+    if out_cap is None:
+        out_cap = max(len(raw) * 40, 1 << 20)
+    while True:
+        dst = np.empty(out_cap, np.uint8)
+        dstlen = ctypes.c_size_t(0)
+        nblocks = ctypes.c_size_t(0)
+        endbit = ctypes.c_int64(start_bit)
+        r = lib.jd_inflate(
+            raw, len(raw), start_bit, dictionary, len(dictionary),
+            dst.ctypes.data_as(ctypes.c_void_p), out_cap,
+            ctypes.byref(dstlen),
+            None, 0, ctypes.byref(nblocks), None, 0, ctypes.byref(endbit),
+            None, 0, None, 1)
+        if r == -6 and out_cap < (1 << 34):       # grow output and retry
+            out_cap *= 4
+            continue
+        break
+    if r < 0:
+        raise _ERRORS.get(r, errors.JDeflateError)(f"native inflate error {r}")
+    return dst[:int(dstlen.value)].tobytes(), int(endbit.value), r == 0

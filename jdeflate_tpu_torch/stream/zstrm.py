@@ -1,5 +1,4 @@
-"""Framed compression and decompression: the reference's zstrm without the
-incremental ZStream object.
+"""Framed compression and decompression, one-shot and incremental (ZStream).
 
 Reproduced from jdeflate_tpu/stream/zstrm.py (reference src/zstrm.c): raw,
 zlib and gzip framing of the block-batch encoder (with the FEXTRA index
@@ -7,9 +6,10 @@ subfield, RFC 1952 §2.3.1.1, and the zlib FDICT preset dictionary),
 first-byte format autodetection against an accepted-format mask (parsehead,
 zstrm.c:567-624), gzip multi-member decode (RFC 1952 §2.2) with FEXTRA
 self-indexed members, the zlib FDICT preset-dictionary protocol with adler32
-id verification (zstrm_setdctnr, zstrm.c:326-390), and trailer checksum
-verification (checkgziptail / checkzlibtail, zstrm.c:626-693). Checksums run
-on the decode device.
+id verification (zstrm_setdctnr, zstrm.c:326-390), trailer checksum
+verification (checkgziptail / checkzlibtail, zstrm.c:626-693), and the
+incremental ZStream with its latched poisoned state (0xDEADBEEF,
+zstrm.c:255-261). Checksums run on the stream's device.
 """
 from __future__ import annotations
 
@@ -19,6 +19,7 @@ from ..formats import headers as H
 from ..ops import checksum as cs
 from . import host_inflate as hi
 from . import native
+from ..utils import device as _device
 from ..utils import errors
 
 _FORMATS = ("raw", "zlib", "gzip")
@@ -82,6 +83,25 @@ def compress_with_index(data: bytes, format: str = "gzip", level: int = 6,
         hdr = H.emit_zlib_header(level, dictid)
         out = hdr + raw + H.emit_zlib_trailer(cs.adler32(data, device=dev))
     return out, index, len(hdr)
+
+
+def _partial_inflate_py(buf: bytes, window: bytes, start_bit: int):
+    """Pure-Python partial inflate (for a host without the native library):
+    decode complete blocks, stop at truncation. Returns (out, end_bit,
+    complete)."""
+    out = bytearray()
+    win = window
+    pos = start_bit
+    while True:
+        try:
+            piece, endpos, bfinal = hi.inflate_one_block(buf, pos, win)
+        except errors.InputEndError:
+            return bytes(out), pos, False
+        out += piece
+        win = (win + piece)[-32768:]
+        pos = endpos
+        if bfinal:
+            return bytes(out), pos, True
 
 
 def _seq_inflate(body: bytes, dictionary: bytes = b""):
@@ -167,3 +187,377 @@ def decompress(data: bytes, format: str = "auto",
     if verify:
         H.check_zlib_trailer(data[-4:], cs.adler32(out, device=dev))
     return out
+
+
+class ZStream:
+    """Incremental framed stream codec (the reference's zstrm object).
+
+    Deflate side: write(data) buffers input; every full segment of
+    block_size x batch bytes is encoded as it fills; flush(final=False)
+    emits the rest as a byte-aligned sync-flush seam (Z_SYNC_FLUSH /
+    DEFLT_FLUSH), flush(final=True) ends the stream (BFINAL and trailer).
+    Each segment takes the last 32 KiB of the previous segment as its
+    dictionary, or the user's dictionary before the first.
+
+    Inflate side: feed(data) decodes complete DEFLATE blocks as they arrive,
+    member after member (RFC 1952 §2.2); read() takes the decoded output;
+    finish() ends the input and checks the trailers. used_input and
+    unused_data account for trailing data (the reference's usedinput,
+    zstrm.c:888-908). Suspension is at block granularity, not byte.
+
+    The encoder and the checksums run on `device` (default "cuda"); the
+    inflate body runs on the host, in the native partial inflator. Errors
+    latch: any failure poisons the stream until reset().
+    """
+
+    def __init__(self, mode: str, format: str = "gzip", level: int = 6,
+                 dictionary: bytes | None = None, block_size: int = 1 << 16,
+                 batch: int = 16, checksum: str = "auto",
+                 source_fn=None, target_fn=None, device="cuda"):
+        if mode not in ("deflate", "inflate"):
+            raise errors.IncorrectUseError(
+                "mode must be 'deflate' or 'inflate'")
+        if mode == "deflate" and format == "auto":
+            raise errors.IncorrectUseError(
+                "deflate requires a concrete format")
+        if checksum not in ("auto", "force", "suppress"):
+            # reference checksum flags: ZSTRM_DOCRC32/DOADLER32 force,
+            # ZSTRM_NOCRC32/NOADLER32 suppress (zstrm.h:53-61)
+            raise errors.IncorrectUseError(
+                "checksum must be 'auto', 'force' or 'suppress'")
+        self.mode = mode
+        self.format = format
+        self.level = level
+        self.dictionary = dictionary
+        self.block_size = block_size
+        self.batch = batch
+        self.checksum_mode = checksum
+        self.device = _device.resolve(device)
+        # IO callbacks (the reference's TZStrmIFn/TZStrmOFn pair,
+        # zstrm.h:92-101): source_fn(nbytes) -> bytes (b"" = end of input),
+        # target_fn(bytes) -> None
+        self.source_fn = source_fn
+        self.target_fn = target_fn
+        self.reset()
+
+    def reset(self):
+        """Reset for reuse with the same configuration (zstrm_reset). Clears
+        a latched error."""
+        self._buf = bytearray()
+        self._out = bytearray()
+        self._started = False
+        self._finished = False
+        self._poisoned = False
+        self.total_in = 0
+        self.total_out = 0
+        self.used_input = 0       # consumed compressed bytes (inflate side)
+        self.unused_data = b""
+        self._crc = 0
+        self._adler = 1
+        self._segments_tail = None
+        self._ist = {"stage": "head"}     # incremental-inflate state
+        return self
+
+    @property
+    def crc32(self) -> int:
+        """Running CRC32 of the uncompressed data seen so far: always kept
+        under checksum='force' (ZSTRM_DOCRC32), under 'auto' only when the
+        framing uses it."""
+        return self._crc
+
+    @property
+    def adler32(self) -> int:
+        """Running adler32 of the uncompressed data (ZSTRM_DOADLER32)."""
+        return self._adler
+
+    def _track(self, data: bytes):
+        """Update the exposed checksums with uncompressed bytes."""
+        force = self.checksum_mode == "force"
+        if force or self.format == "gzip":
+            self._crc = cs.crc32(data, self._crc, device=self.device)
+        if force or self.format == "zlib":
+            self._adler = cs.adler32(data, self._adler, device=self.device)
+
+    def _check(self):
+        if self._poisoned:
+            raise errors.StreamPoisonedError("stream previously errored")
+
+    def _start_if_needed(self):
+        if self._started:
+            return
+        self._started = True
+        if self.format == "gzip":
+            if self.dictionary:
+                self._poisoned = True
+                raise errors.IncorrectUseError("gzip has no dictionary field")
+            self._emit(H.emit_gzip_header())
+        elif self.format == "zlib":
+            dictid = (cs.adler32(self.dictionary, device=self.device)
+                      if self.dictionary else None)
+            self._emit(H.emit_zlib_header(self.level, dictid))
+
+    def _emit(self, b: bytes):
+        if self.target_fn is not None:
+            self.target_fn(bytes(b))
+        else:
+            self._out += b
+        self.total_out += len(b)
+
+    def write(self, data: bytes):
+        """Buffer input; encode every full segment."""
+        self._check()
+        if self.mode != "deflate":
+            self._poisoned = True
+            raise errors.IncorrectUseError("write() on an inflate stream")
+        if self._finished:
+            self._poisoned = True
+            raise errors.IncorrectUseError("write() after final flush")
+        self._start_if_needed()
+        self._buf += data
+        self.total_in += len(data)
+        self._track(data)
+        seg = self.block_size * self.batch
+        while len(self._buf) >= seg:
+            chunk = bytes(self._buf[:seg])
+            del self._buf[:seg]
+            self._encode_segment(chunk, final=False)
+
+    def _encode_segment(self, chunk: bytes, final: bool):
+        enc = RawDeflater(level=self.level, block_size=self.block_size,
+                          batch=self.batch, device=self.device)
+        raw, _ = enc.compress(chunk, dictionary=self._segment_dict(),
+                              final=final)
+        if chunk:
+            self._segments_tail = chunk[-32768:]
+        self._emit(raw)
+
+    def _segment_dict(self):
+        """The last 32 KiB of the previous segment, or the user's dictionary
+        before the first."""
+        if self._segments_tail is None:
+            return self.dictionary
+        return self._segments_tail
+
+    def flush(self, final: bool = True) -> bytes:
+        """Encode the buffered input. final=True ends the stream with the
+        trailer. Returns the output not yet read."""
+        self._check()
+        if self.mode != "deflate":
+            self._poisoned = True
+            raise errors.IncorrectUseError("flush() on an inflate stream")
+        self._start_if_needed()
+        if final and self._finished:
+            return self.read()
+        chunk = bytes(self._buf)
+        self._buf.clear()
+        if chunk or final:
+            self._encode_segment(chunk, final=final)
+        if final:
+            self._finished = True
+            if self.format == "gzip":
+                self._emit(H.emit_gzip_trailer(self._crc, self.total_in))
+            elif self.format == "zlib":
+                self._emit(H.emit_zlib_trailer(self._adler))
+        return self.read()
+
+    # ---- inflate side ----
+
+    def feed(self, data: bytes) -> None:
+        """Buffer compressed input and decode the complete DEFLATE blocks it
+        holds (the reference's incremental inflate, zstrm.c:792-958, at
+        block granularity), so memory stays bounded by the feed size plus
+        one block. Take the output with read() or at finish()."""
+        self._check()
+        if self.mode != "inflate":
+            self._poisoned = True
+            raise errors.IncorrectUseError("feed() on a deflate stream")
+        self._buf += data
+        self.total_in += len(data)
+        try:
+            self._drain_stream(final=False)
+        except errors.JDeflateError:
+            self._poisoned = True
+            raise
+
+    def _inflate_fmt(self):
+        accepted = set(_FORMATS) if self.format == "auto" else {self.format}
+        return H.detect_format(self._buf[0], accepted)
+
+    def _verify(self) -> bool:
+        return self.checksum_mode != "suppress"
+
+    def _drain_stream(self, final: bool):
+        """Incremental decode over the buffered input.
+
+        Stages: head -> body (complete blocks through the partial
+        inflator) -> trailer -> (gzip: next member | done). The 32 KiB
+        window carries across calls like the reference's ring
+        (updatewindow, src/inflator.c:616-675).
+        """
+        if self._finished:
+            return
+        st = self._ist
+        dev = self.device
+        while True:
+            if st["stage"] == "head":
+                if not self._buf:
+                    return
+                fmt = self._inflate_fmt()
+                if fmt == "gzip":
+                    try:
+                        hl = H.parse_gzip_header(bytes(self._buf))
+                    except errors.InputEndError:
+                        return
+                elif fmt == "zlib":
+                    try:
+                        hl, dictid = H.parse_zlib_header(bytes(self._buf))
+                    except errors.InputEndError:
+                        return
+                    if dictid is not None:
+                        if self.dictionary is None:
+                            raise errors.MissingDictError(
+                                "stream requires a preset dictionary")
+                        if cs.adler32(self.dictionary, device=dev) != dictid:
+                            raise errors.BadDictError(
+                                "dictionary id mismatch")
+                else:
+                    hl = 0
+                del self._buf[:hl]
+                self.used_input += hl
+                st.update(stage="body", fmt=fmt, bit=0,
+                          win=(self.dictionary or b"")[-32768:]
+                          if fmt != "gzip" else b"",
+                          mcrc=0, madler=1, mlen=0)
+            elif st["stage"] == "body":
+                if not self._buf:
+                    return
+                buf = bytes(self._buf)
+                if native.available():
+                    o, endbit, complete = native.inflate_partial(
+                        buf, st["win"], st["bit"])
+                else:
+                    o, endbit, complete = _partial_inflate_py(
+                        buf, st["win"], st["bit"])
+                if o:
+                    st["win"] = (st["win"] + o)[-32768:]
+                    st["mcrc"] = cs.crc32(o, st["mcrc"], device=dev)
+                    st["madler"] = cs.adler32(o, st["madler"], device=dev)
+                    st["mlen"] += len(o)
+                    self._track(o)
+                    self._push_out(o)
+                    self.total_out += len(o)
+                consumed = endbit >> 3
+                del self._buf[:consumed]
+                self.used_input += consumed
+                st["bit"] = endbit & 7
+                if not complete:
+                    return
+                # stream ended: consume the final partial byte
+                if st["bit"]:
+                    del self._buf[:1]
+                    self.used_input += 1
+                    st["bit"] = 0
+                st["stage"] = "trailer"
+            elif st["stage"] == "trailer":
+                fmt = st["fmt"]
+                if fmt == "gzip":
+                    if len(self._buf) < 8:
+                        if final:
+                            raise errors.InputEndError(
+                                "truncated gzip trailer")
+                        return
+                    if self._verify():
+                        H.check_gzip_trailer(bytes(self._buf[:8]),
+                                             st["mcrc"], st["mlen"])
+                    del self._buf[:8]
+                    self.used_input += 8
+                    # another member? (RFC 1952 §2.2)
+                    if len(self._buf) >= 2 \
+                            and bytes(self._buf[:2]) == H.GZIP_MAGIC:
+                        st["stage"] = "head"
+                        continue
+                    if len(self._buf) < 2 and not final:
+                        st["stage"] = "head"   # more members may arrive
+                        return
+                    st["stage"] = "done"
+                elif fmt == "zlib":
+                    if len(self._buf) < 4:
+                        if final:
+                            raise errors.InputEndError(
+                                "truncated zlib trailer")
+                        return
+                    if self._verify():
+                        H.check_zlib_trailer(bytes(self._buf[:4]),
+                                             st["madler"])
+                    del self._buf[:4]
+                    self.used_input += 4
+                    st["stage"] = "done"
+                else:
+                    st["stage"] = "done"
+            elif st["stage"] == "done":
+                self.unused_data += bytes(self._buf)
+                self._buf.clear()
+                return
+
+    def _push_out(self, o: bytes):
+        """Deliver decoded output: to target_fn, or into the read buffer."""
+        if self.target_fn is not None:
+            self.target_fn(bytes(o))
+        else:
+            self._out += o
+
+    def read(self) -> bytes:
+        """Take the output so far: decoded (inflate) or encoded (deflate)."""
+        out = bytes(self._out)
+        self._out.clear()
+        return out
+
+    def run(self, chunk_size: int = 1 << 16) -> bytes:
+        """Drive the stream from source_fn to its end (the reference's
+        callback pump, zstrm_setsourcefn + settargetfn): pull chunk_size
+        bytes a call until source_fn returns b"". Returns the output not
+        given to target_fn."""
+        self._check()
+        if self.source_fn is None:
+            raise errors.IncorrectUseError("run() requires source_fn")
+        while True:
+            data = self.source_fn(chunk_size)
+            if not data:
+                break
+            if self.mode == "deflate":
+                self.write(data)
+            else:
+                self.feed(data)
+        if self.mode == "deflate":
+            return self.flush(final=True)
+        return self.finish()
+
+    def finish(self) -> bytes:
+        """End the input: decode what is left and check the trailers
+        (inflate mode). Trailing bytes that are not part of the stream stay
+        in unused_data."""
+        self._check()
+        if self.mode != "inflate":
+            self._poisoned = True
+            raise errors.IncorrectUseError("finish() on a deflate stream")
+        if self._finished:
+            return self.read()
+        try:
+            self._drain_stream(final=True)
+            st = self._ist
+            if st["stage"] == "body":
+                raise errors.InputEndError("truncated deflate stream")
+            if st["stage"] == "head" and (self._buf or not self.used_input):
+                if self.used_input and bytes(self._buf[:2]) == H.GZIP_MAGIC:
+                    raise errors.InputEndError("truncated gzip member")
+                if not self.used_input and self._buf:
+                    raise errors.InputEndError("truncated stream header")
+                self.unused_data = bytes(self._buf)
+                self._buf.clear()
+            if st["stage"] == "trailer":
+                raise errors.InputEndError("truncated stream trailer")
+        except errors.JDeflateError:
+            self._poisoned = True
+            raise
+        self._finished = True
+        return self.read()

@@ -1,0 +1,285 @@
+"""Parity of the port's data-parallel compression
+(jdeflate_tpu_torch.parallel) with the JAX package on the CPU: the port's
+ShardedDeflater on four virtual CPU ranks against the JAX ShardedDeflater on
+four devices of the 8-device CPU mesh (tests/conftest.py). Both modes, a
+ragged tail shard, several rounds, empty input, the checksum combine, the
+verify/fault-hook retry, and decompress_members. Tolerance: exact equality
+of blobs, member info (offsets, lengths, index dicts) and retries."""
+import gzip
+import struct
+import zlib
+
+import numpy as np
+import pytest
+import torch
+
+from jdeflate_tpu.codec import levels as jlevels
+from jdeflate_tpu.parallel import mesh as jmesh
+from jdeflate_tpu.parallel import shard as jshard
+from jdeflate_tpu_torch.codec import inflate as tinf
+from jdeflate_tpu_torch.codec import levels as tlevels
+from jdeflate_tpu_torch.parallel import mesh as tmesh
+from jdeflate_tpu_torch.parallel import shard as tshard
+from jdeflate_tpu_torch.utils import errors
+
+# both sides run the same (CPU-capped) probe depths, tests/conftest.py
+tlevels._PROBE_CAP.update(jlevels._PROBE_CAP)
+
+# one block size, shard size and level for the file, so the JAX sharded
+# encoder compiles once
+BL, BPD, LEVEL = 2048, 2, 6
+ROUND = 4 * BPD * BL
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The tensors here are small; torch's default thread pool only spins
+    against the other test workers' JAX compiles."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module")
+def meshes():
+    return tmesh.make_mesh(4, device="cpu"), jmesh.make_mesh(4)
+
+
+def _pair(meshes, mode, verify=False, level=LEVEL, bl=BL, bpd=BPD):
+    kw = dict(level=level, block_size=bl, blocks_per_device=bpd, mode=mode,
+              verify=verify)
+    return (tshard.ShardedDeflater(mesh=meshes[0], **kw),
+            jshard.ShardedDeflater(mesh=meshes[1], **kw))
+
+
+def _same_index(got, want):
+    assert got.keys() == want.keys()
+    for key in want:
+        if key != "win":
+            assert got[key] == want[key], key
+    assert len(got["win"]) == len(want["win"])
+    for a, b in zip(got["win"], want["win"]):
+        assert (a is None) == (b is None)
+        if b is not None:
+            np.testing.assert_array_equal(a, b)
+
+
+def _same_info(got, want):
+    assert got.keys() == want.keys()
+    assert (got["mode"], got["n"]) == (want["mode"], want["n"])
+    assert len(got.get("members", [])) == len(want.get("members", []))
+    for g, w in zip(got.get("members", []), want.get("members", [])):
+        assert len(g) == len(w) and g[:3] == w[:3]
+        if len(w) > 3:
+            _same_index(g[3], w[3])
+
+
+@pytest.mark.parametrize("mode,kind,n", [
+    ("members", "text", 2 * ROUND + 777),      # 3 rounds, ragged tail shard
+    ("stream", "binary", 2 * ROUND + 123),
+    ("members", "runs", BL + 5),               # one rank of four busy
+])
+def test_sharded_matches_jax(corpus, meshes, mode, kind, n):
+    data = corpus(kind, n)
+    t, j = _pair(meshes, mode)
+    tb, ti = t.compress(data)
+    jb, ji = j.compress(data)
+    assert tb == jb
+    _same_info(ti, ji)
+    assert gzip.decompress(tb) == data
+    if mode == "members":
+        assert len(ti["members"]) == -(-n // (BPD * BL))
+        # the port decodes the JAX blob with its index on the windowed
+        # path, and its own blob without one
+        tinf.STATS_LOG.clear()
+        assert tshard.decompress_members(jb, ji, device="cpu") == data
+        assert "win" in [k for k, _, _ in tinf.STATS_LOG]
+        assert all(e == 0 for _, _, e in tinf.STATS_LOG)
+        assert tshard.decompress_members(tb, device="cpu") == data
+        assert jshard.decompress_members(tb, ti) == data
+
+
+@pytest.mark.parametrize("mode", ["members", "stream"])
+def test_empty_input_matches_jax(meshes, mode):
+    t, j = _pair(meshes, mode)
+    tb, ti = t.compress(b"")
+    jb, ji = j.compress(b"")
+    assert tb == jb and ti == ji
+    assert gzip.decompress(tb) == b""
+    assert tshard.decompress_members(tb, ti, device="cpu") == b""
+
+
+def test_checksum_combine_matches_zlib(corpus, meshes):
+    data = corpus("text", ROUND + 99)
+    t, j = _pair(meshes, "stream")
+    tb, _ = t.compress(data)
+    assert tb == j.compress(data)[0]
+    crc, isize = struct.unpack("<II", tb[-8:])
+    assert (crc, isize) == (zlib.crc32(data), len(data))
+    assert tshard.checksums_sharded(
+        [torch.zeros(tshard.HALO + 4, dtype=torch.uint8)], [0]) == [0]
+
+
+def _killer(rank, how):
+    killed = []
+
+    def hook(k, seg):
+        if k == rank and not killed:
+            killed.append(k)
+            return how(seg)
+        return seg
+    return hook
+
+
+@pytest.mark.parametrize("mode,rank,how", [
+    ("members", 1, lambda seg: seg[:4] + bytes(8) + seg[12:]),
+    ("stream", 2, lambda seg: seg[:-6] + bytes(6)),
+])
+def test_fault_retry_matches_jax(corpus, meshes, mode, rank, how):
+    """A corrupted shard is detected and encoded again: the same retries,
+    blob and index as the JAX package."""
+    data = corpus("binary" if mode == "stream" else "text", 2 * ROUND + 50)
+    t, j = _pair(meshes, mode, verify=True)
+    t.fault_hook = _killer(rank, how)
+    j.fault_hook = _killer(rank, how)
+    tb, ti = t.compress(data)
+    jb, ji = j.compress(data)
+    assert t.retries and t.retries == j.retries
+    assert tb == jb
+    _same_info(ti, ji)
+    assert gzip.decompress(tb) == data
+    if mode == "members":
+        assert tshard.decompress_members(tb, ti, device="cpu") == data
+
+
+@pytest.mark.parametrize("mode,rank", [("members", 1), ("stream", 2)])
+def test_fault_retry_retakes_the_crc_on_the_host(corpus, meshes, monkeypatch,
+                                                 mode, rank):
+    """A failed rank's crc32 is not trusted: with its shard and its crc32
+    both corrupted, the retry takes the crc32 from the source bytes, and the
+    blob equals the JAX package's, whose rank fails in its shard only."""
+    data = corpus("text", 2 * ROUND + 50)
+    t, j = _pair(meshes, mode, verify=True)
+    t.fault_hook = _killer(rank, lambda seg: seg[:4] + bytes(8) + seg[12:])
+    j.fault_hook = _killer(rank, lambda seg: seg[:4] + bytes(8) + seg[12:])
+    real = tshard.checksums_sharded
+    wrong = []
+
+    def bad_crc(data_sh, lens):
+        crcs = real(data_sh, lens)
+        if not wrong:
+            wrong.append(crcs[rank])
+            crcs[rank] ^= 0xDEADBEEF
+        return crcs
+
+    monkeypatch.setattr(tshard, "checksums_sharded", bad_crc)
+    tb, ti = t.compress(data)
+    jb, ji = j.compress(data)
+    assert wrong and t.retries == j.retries == [(rank * BPD * BL, BPD * BL)]
+    assert tb == jb
+    _same_info(ti, ji)
+    assert gzip.decompress(tb) == data
+
+
+def test_detector_error_of_any_kind_means_retry(corpus, meshes, monkeypatch):
+    """The failure detector takes any error of the decode as a failed
+    shard, as the JAX package's does, not only the codec's own errors."""
+    data = corpus("text", ROUND)
+    t, j = _pair(meshes, "members", verify=True)
+    t.fault_hook = _killer(1, lambda seg: seg[:4] + bytes(8) + seg[12:])
+    j.fault_hook = _killer(1, lambda seg: seg[:4] + bytes(8) + seg[12:])
+    raised = []
+
+    def faulty(real):
+        def decode(*a, **k):
+            try:
+                return real(*a, **k)
+            except errors.JDeflateError as e:
+                raised.append(e)
+                raise RuntimeError("decoder fault") from e
+        return decode
+
+    # the detector decodes natively where the library builds, else on the
+    # host's Python decoder
+    monkeypatch.setattr(tshard.native, "inflate", faulty(tshard.native.inflate))
+    monkeypatch.setattr(tshard.hi, "inflate_raw", faulty(tshard.hi.inflate_raw))
+    tb, ti = t.compress(data)
+    jb, ji = j.compress(data)
+    assert raised and t.retries == j.retries == [(BPD * BL, BPD * BL)]
+    assert tb == jb
+    _same_info(ti, ji)
+
+
+def test_verify_without_fault_is_clean(corpus, meshes):
+    data = corpus("text", ROUND)
+    t, _ = _pair(meshes, "members", verify=True)
+    plain, _ = _pair(meshes, "members")
+    assert t.compress(data)[0] == plain.compress(data)[0]
+    assert not t.retries
+
+
+def test_level9_member_index_covers_every_sub_block(corpus, meshes):
+    """ROADMAP C11: at levels 8-9 the splitter works in 2 KiB chunks. The
+    port builds each member's index with the level's chunk, so it lists
+    every sub-block and every member decodes on the card; the JAX sharded
+    encoder uses the 8 KiB default and lists only sub-blocks on 8 KiB
+    seams, so the card decodes only part of each member. The blobs are
+    equal."""
+    bl = 4096
+    data = b"".join(corpus(k, 2048) for k in ("text", "random") * 4)
+    t, j = _pair(meshes, "members", level=9, bl=bl, bpd=2)
+    tb, ti = t.compress(data)
+    jb, ji = j.compress(data)
+    assert tb == jb
+    got = [m[3]["block_bytes"] for m in ti["members"]]
+    want = [m[3]["block_bytes"] for m in ji["members"]]
+    assert got == [[0, 2048, 4096, 6144]] * 2
+    assert want == [[0, 4096]] * 2
+    tinf.STATS_LOG.clear()
+    assert tshard.decompress_members(tb, ti, device="cpu") == data
+    assert [p for _, p, _ in tinf.STATS_LOG] == [8192, 8192]
+    tinf.STATS_LOG.clear()
+    assert tshard.decompress_members(jb, ji, device="cpu") == data
+    # each member's windowed batch stops short of the member's 8 KiB, and
+    # the native decoder does the rest
+    assert [p for _, p, _ in tinf.STATS_LOG] == [4096, 4096]
+
+
+def test_mesh_rules():
+    assert tmesh.make_mesh(3, device="cpu") == (torch.device("cpu"),) * 3
+    with pytest.raises(errors.IncorrectUseError):
+        tmesh.make_mesh(device="cpu")
+    with pytest.raises(ValueError):
+        tshard.ShardedDeflater(mesh=tmesh.make_mesh(1, device="cpu"),
+                               mode="ring")
+    if not torch.cuda.is_available():
+        # a CUDA mesh never moves to the CPU
+        with pytest.raises(errors.IncorrectUseError):
+            tmesh.make_mesh(2)
+        with pytest.raises(errors.IncorrectUseError):
+            tshard.ShardedDeflater()
+    else:
+        with pytest.raises(errors.IncorrectUseError):
+            tmesh.make_mesh(torch.cuda.device_count() + 1)
+
+
+@pytest.mark.cuda
+def test_two_cards_match_four_ranks_on_one(corpus):
+    """The blob does not depend on the mesh: ranks on cuda:0 and cuda:1
+    give the bytes of four ranks on cuda:0, in both modes."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs 2 CUDA devices")
+    data = corpus("text", 3 * ROUND + 17)
+    for mode in ("members", "stream"):
+        kw = dict(level=LEVEL, block_size=BL, blocks_per_device=BPD,
+                  mode=mode)
+        two, ti = tshard.ShardedDeflater(mesh=tmesh.make_mesh(2),
+                                         **kw).compress(data)
+        four, fi = tshard.ShardedDeflater(mesh=["cuda:0"] * 4,
+                                          **kw).compress(data)
+        assert two == four
+        _same_info(ti, fi)
+        assert gzip.decompress(two) == data
+        if mode == "members":
+            assert tshard.decompress_members(two, ti, device="cuda:1") == data

@@ -180,7 +180,9 @@ def test_index_framing_matches_jax(corpus, level):
 
 
 def test_import_pulls_in_no_jax():
-    code = ("import sys, jdeflate_tpu_torch, jdeflate_tpu_torch.codec.inflate;"
+    code = ("import sys, jdeflate_tpu_torch, jdeflate_tpu_torch.codec.inflate,"
+            " jdeflate_tpu_torch.parallel.shard;"
+            "from jdeflate_tpu_torch import ZStream, get_version;"
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'jdeflate_tpu' "
             "or m.startswith('jdeflate_tpu.')];"
