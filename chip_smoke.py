@@ -37,7 +37,14 @@ mode over the first 8 MiB (its combined CRC32 equal to zlib's), and a
 verify=True run whose fault hook corrupts one shard (one retry, right
 output); the match walk is held to its plain version on the members
 encode's batches, the walk and the token expansion on the member
-decodes'. Each path's kernel launches are counted from zero around it
+decodes'. Multi-process: the same sharded runs over a gloo group of
+worker processes of this script (python3 chip_smoke.py --mp-worker JOB
+RANK, started by the script itself), every rank on cuda:0: 4 processes x
+1 rank in members mode over the corpus and in stream mode over 8 MiB, 2
+processes x 2 ranks with verify=True and the fault hook on global rank 1;
+every process's blob, info and retries must equal the one-process run's,
+and the match walk is held to its plain version on each worker's first
+round. Each path's kernel launches are counted from zero around it
 (path_launches in the kernels line). Each kernel is
 held against its plain PyTorch version on the main path's inputs, the
 encoder's integer stages on the card against the same stages on the CPU,
@@ -81,6 +88,7 @@ DENSE_MB = 8
 ZS_WRITE = 1_000_003          # ZStream deflate: uneven writes
 SHARD_RANKS = 4               # sharded encode: four ranks on cuda:0
 SHARD_STREAM_MB = 8           # sharded stream mode and the retry run
+MP_WORKER_S = 300             # multi-process phase: each spawn's limit
 PROFILE_MB = 4                # ZStream and sharded paths: profiled slice
 _T0 = time.perf_counter()
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate (data sheet)
@@ -1464,7 +1472,9 @@ def sharded_phase(data: bytes, card: str) -> tuple:
     corrupts one shard. The match walk is held to its plain version on the
     members encode's batches, the walk and the token expansion on the
     member decodes'. Returns (match walk launches by path, its max abs err,
-    windowed batches of decompress_members, walk and expand2 max abs err).
+    windowed batches of decompress_members, walk and expand2 max abs err,
+    the results phase 13 is held to: {run: (blob, info, retries, wall,
+    match walk launches)}).
     """
     import torch
     from jdeflate_tpu_torch.codec import deflate as D
@@ -1618,15 +1628,7 @@ def sharded_phase(data: bytes, card: str) -> tuple:
     stamp("12e")
     # ---- 12e. verify=True, one shard corrupted: one retry, right output
     renc = shard.ShardedDeflater(mesh=mesh, level=6, verify=True)
-    killed = []
-
-    def hook(k, seg):
-        if k == 1 and not killed:
-            killed.append(k)
-            return seg[:4] + bytes(8) + seg[12:]
-        return seg
-
-    renc.fault_hook = hook
+    renc.fault_hook = corrupt_first(1)
     lz77.match_walk.launches = 0
     (rblob, rinfo), rwall, _ = one_run(lambda: renc.compress(part))
     launches["sharded_retry"] = lz77.match_walk.launches
@@ -1642,7 +1644,225 @@ def sharded_phase(data: bytes, card: str) -> tuple:
           f"match walk launches {launches['sharded_retry']} = {want} shards "
           f"+ 1 re-encode; gzip and decompress_members give the input; wall "
           f"{rwall * 1e3:.1f} ms", flush=True)
-    return launches, b3_err, nwin, walk_err, exp_err
+    ref = {"12a": (blob, info, [], wall, launches["sharded_members"]),
+           "12d": (sblob, None, [], swall, launches["sharded_stream"]),
+           "12e": (rblob, rinfo, renc.retries, rwall,
+                   launches["sharded_retry"])}
+    return launches, b3_err, nwin, walk_err, exp_err, ref
+
+
+def corrupt_first(rank: int):
+    """A ShardedDeflater fault hook that zeroes bytes 4-11 of global rank
+    `rank`'s first shard."""
+    killed = []
+
+    def hook(k, seg):
+        if k == rank and not killed:
+            killed.append(k)
+            return seg[:4] + bytes(8) + seg[12:]
+        return seg
+    return hook
+
+
+def canonical(x):
+    """x with numpy arrays as lists, so that == compares infos exactly."""
+    import numpy as np
+    if isinstance(x, np.ndarray):
+        return ("ndarray", x.tolist())
+    if isinstance(x, dict):
+        return {k: canonical(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(canonical(v) for v in x)
+    return x
+
+
+def spawn_workers(tmp: str, world: int, local: int, corpus: str,
+                  runs: list) -> list:
+    """Run `world` worker processes of this script (mp_worker), each with
+    `local` ranks on cuda:0, in one gloo group, through `runs`. Every
+    worker must exit 0 within MP_WORKER_S; on expiry all are killed. Returns
+    each worker's results."""
+    import pickle
+    os.makedirs(tmp)
+    job = os.path.join(tmp, "job.pkl")
+    with open(job, "wb") as f:
+        pickle.dump({"corpus": corpus, "world": world, "local": local,
+                     "init": os.path.join(tmp, "pg"), "runs": runs}, f)
+    procs = []
+    for r in range(world):
+        with open(os.path.join(tmp, f"log{r}.txt"), "wb") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--mp-worker",
+                 job, str(r)], stdout=log, stderr=subprocess.STDOUT,
+                cwd=REPO))
+    deadline = time.monotonic() + MP_WORKER_S
+    expired = False
+    for p in procs:
+        try:
+            p.wait(timeout=max(deadline - time.monotonic(), 0.1))
+        except subprocess.TimeoutExpired:
+            expired = True
+            break
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+    bad = [r for r, p in enumerate(procs) if expired or p.returncode != 0]
+    for r in bad:
+        with open(os.path.join(tmp, f"log{r}.txt"), errors="replace") as f:
+            print(f"---- worker {r} (exit {procs[r].returncode}):\n"
+                  + f.read()[-3000:], flush=True)
+    if bad:
+        fail(f"multi-process workers {bad} of {world} "
+             + ("timed out" if expired else "failed"))
+    outs = []
+    for r in range(world):
+        with open(os.path.join(tmp, f"out{r}.pkl"), "rb") as f:
+            outs.append(pickle.load(f))
+    return outs
+
+
+def mp_worker(job_path: str, rank: int) -> None:
+    """One process of phase 13: join the gloo group, then for each run a
+    warm compress of the first round, the counts zeroed, a barrier, the
+    timed compress, and B3 held to its plain version on this process's
+    first round. Writes {run: results} to out<rank>.pkl."""
+    import datetime
+    import hashlib
+    import pickle
+    import torch
+    import torch.distributed as dist
+    from jdeflate_tpu_torch.codec import deflate as D
+    from jdeflate_tpu_torch.ops import lz77
+    from jdeflate_tpu_torch.parallel import mesh as M
+    from jdeflate_tpu_torch.parallel import shard
+    if any(m == "jax" or m.startswith(("jax.", "jdeflate_tpu."))
+           or m == "jdeflate_tpu" for m in sys.modules):
+        fail("the port pulled in jax or jdeflate_tpu")
+    with open(job_path, "rb") as f:
+        job = pickle.load(f)
+    with open(job["corpus"], "rb") as f:
+        data = f.read()
+    world, local = job["world"], job["local"]
+    dist.init_process_group(
+        "gloo", init_method="file://" + job["init"], world_size=world,
+        rank=rank, timeout=datetime.timedelta(seconds=60))
+    group = dist.group.WORLD
+    # one card per process is make_mesh's own layout; two ranks of cuda:0
+    # in each process are given as devices with the group
+    mesh = dict(mesh=M.make_mesh(group=group)) if local == 1 else dict(
+        mesh=[torch.device("cuda", 0)] * local, group=group)
+    res = {}
+    for name, nbytes, mode, verify, hook_rank in job["runs"]:
+        part = data[:nbytes]
+        enc = shard.ShardedDeflater(**mesh, level=6, mode=mode,
+                                    verify=verify)
+        shard.ShardedDeflater(**mesh, level=6, mode=mode).compress(
+            part[:world * local * enc.bl * enc.bpd])
+        if hook_rank is not None:
+            enc.fault_hook = corrupt_first(hook_rank)
+        calls, gsecs, secs = [], [], []
+        torch.cuda.synchronize()
+        lz77.match_walk.launches = 0
+        with wrapped(D, "encode_batch",
+                     after=lambda a, k, r, sec: calls.append(a)
+                     if len(calls) < local else None), \
+                wrapped(dist, "all_gather_object",
+                        after=lambda a, k, r, sec: gsecs.append(sec)), \
+                checksum_calls(secs):
+            dist.barrier(group)
+            t0 = time.monotonic()
+            blob, info = enc.compress(part)
+            t1 = time.monotonic()
+        launches = lz77.match_walk.launches
+        b3_err = match_walk_checks(match_walk_inputs(calls), enc.bl,
+                                   synthetic=False)
+        res[name] = {"sha256": hashlib.sha256(blob).hexdigest(),
+                     "blob": blob, "info": info, "retries": enc.retries,
+                     "t0": t0, "t1": t1, "gather_s": gsecs,
+                     "crc_s": secs, "launches": launches, "b3_err": b3_err}
+    dist.destroy_process_group()
+    with open(os.path.join(os.path.dirname(job_path), f"out{rank}.pkl"),
+              "wb") as f:
+        pickle.dump(res, f)
+
+
+def multiproc_phase(data: bytes, card: str, ref: dict) -> tuple:
+    """Phase 13: ShardedDeflater over a gloo group of worker processes of
+    this script, every rank on cuda:0, each run held to its phase-12 run
+    on the same global rank count: 13a 4 processes x 1 rank, members over
+    the corpus (12a); 13b 4 x 1, stream over the first SHARD_STREAM_MB MiB
+    (12d); 13c 2 processes x 2 ranks, members with verify=True and 12e's
+    fault hook on global rank 1 (12e). Returns (match walk launches summed
+    over the workers, by run; the workers' max abs err of B3)."""
+    import tempfile
+    part = SHARD_STREAM_MB << 20
+    launches, b3_err = {}, 0
+    with tempfile.TemporaryDirectory() as tmp:
+        corpus = os.path.join(tmp, "corpus.bin")
+        with open(corpus, "wb") as f:
+            f.write(data)
+        t0 = time.perf_counter()
+        outs4 = spawn_workers(os.path.join(tmp, "w4"), 4, 1, corpus, [
+            ("13a", len(data), "members", False, None),
+            ("13b", part, "stream", False, None)])
+        t4 = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        outs2 = spawn_workers(os.path.join(tmp, "w2"), 2, 2, corpus, [
+            ("13c", part, "members", True, 1)])
+        t2 = time.perf_counter() - t0
+    print(f"multi-process spawns: 4 workers (13a, 13b) {t4:.1f} s, 2 "
+          f"workers (13c) {t2:.1f} s, start-up and warm runs included",
+          flush=True)
+    for name, outs, layout, was, key in (
+            ("13a", outs4, "4 processes x 1 rank", "12a", "multiproc_members"),
+            ("13b", outs4, "4 processes x 1 rank", "12d", "multiproc_stream"),
+            ("13c", outs2, "2 processes x 2 ranks", "12e",
+             "multiproc_retry")):
+        rblob, rinfo, rretries, rwall, want_l = ref[was]
+        got = [o[name] for o in outs]
+        launches[key] = sum(g["launches"] for g in got)
+        b3_err = max([b3_err] + [g["b3_err"] for g in got])
+        nbytes = len(data) if name == "13a" else part
+        for r, g in enumerate(got):
+            if g["blob"] != rblob or g["retries"] != rretries or (
+                    rinfo is not None
+                    and canonical(g["info"]) != canonical(rinfo)):
+                fail(f"{name}: process {r}'s blob, info or retries differ "
+                     f"from {was}'s (sha256 {g['sha256'][:16]}, retries "
+                     f"{g['retries']} against {rretries})")
+        if launches[key] != want_l:
+            fail(f"{name}: {launches[key]} match walk launches over the "
+                 f"processes, {was} {want_l}")
+        if name == "13b":
+            crc, isize = struct.unpack("<II", got[0]["blob"][-8:])
+            if crc != zlib.crc32(data[:part]) or isize != part:
+                fail(f"13b: crc {crc:#x} != zlib's")
+        wall = max(g["t1"] for g in got) - min(g["t0"] for g in got)
+        print(f"{name} multi-process {layout} of cuda:0, "
+              f"{'stream' if name == '13b' else 'members'}"
+              f"{', verify, fault on global rank 1' if name == '13c' else ''}"
+              f": {nbytes} B -> {len(got[0]['blob'])} B; every process's "
+              f"blob (sha256 {got[0]['sha256'][:16]}), info and retries "
+              f"{got[0]['retries']} = {was}'s; match walk launches "
+              f"{[g['launches'] for g in got]} = {launches[key]}"
+              + (f"; crc32 {crc:#010x} = zlib's" if name == "13b" else ""),
+              flush=True)
+        ms = [[round(x * 1e3, 1) for x in (
+            g["t1"] - g["t0"] - sum(g["gather_s"]), *g["gather_s"])]
+            for g in got]
+        print(f"{name} ({card}): wall {wall * 1e3:.1f} ms from the barrier "
+              f"to the last process's return ({was}, one process: "
+              f"{rwall * 1e3:.1f} ms); per process, encode "
+              f"{[m[0] for m in ms]} ms, input check {[m[1] for m in ms]} "
+              f"ms, gather {[m[2] for m in ms]} ms (the collectives' waits "
+              "included); "
+              + "; ".join(f"process {r}: "
+                          + round_trips(g["crc_s"], g["t1"] - g["t0"])
+                          for r, g in enumerate(got)), flush=True)
+    print(f"the match walk equals its plain version on every worker's first "
+          f"round (max abs err {b3_err})", flush=True)
+    return launches, b3_err
 
 
 def walk_checks(per: list, calls: list, synthetic: bool = True) -> int:
@@ -2013,12 +2233,16 @@ def main() -> None:
     stamp("ZStream phase")
     zs_launches = zstream_phase(data, gz, card)
     stamp("sharded phase")
-    sh_launches, sh_b3_err, dm_launches, dm_walk_err, dm_exp_err = \
+    sh_launches, sh_b3_err, dm_launches, dm_walk_err, dm_exp_err, sh_ref = \
         sharded_phase(data, card)
+    stamp("multi-process phase")
+    torch.cuda.empty_cache()
+    mp_launches, mp_b3_err = multiproc_phase(data, card, sh_ref)
     stamp("done")
     enc_kernel["path_launches"] = {"zstream_deflate": zs_launches,
-                                   **sh_launches}
-    enc_kernel["max_abs_err"] = max(enc_kernel["max_abs_err"], sh_b3_err)
+                                   **sh_launches, **mp_launches}
+    enc_kernel["max_abs_err"] = max(enc_kernel["max_abs_err"], sh_b3_err,
+                                    mp_b3_err)
 
     kernels = [
         {"name": "walk", "route": "cuda",
@@ -2054,4 +2278,7 @@ def main() -> None:
 
 if __name__ == "__main__":
     sys.path.insert(0, REPO)
-    main()
+    if sys.argv[1:2] == ["--mp-worker"]:
+        mp_worker(sys.argv[2], int(sys.argv[3]))
+    else:
+        main()

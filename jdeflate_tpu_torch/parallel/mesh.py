@@ -12,10 +12,20 @@ dp_sharding and replicated return XLA NamedSharding objects that place an
 array over its mesh; a tuple of devices has no such placement object, so
 they have no counterpart here: each rank's tensors are put on its device
 where they are made.
+
+Several processes: where the JAX caller runs jax.distributed.initialize()
+before make_mesh(), which then lists every process's devices, the caller
+here runs torch.distributed.init_process_group and passes its group. Each
+process then holds a ProcessMesh: its own ranks' devices and its place in
+the global mesh, which is every process's ranks in process-rank order (the
+order in which jax.devices() lists devices across processes).
 """
 from __future__ import annotations
 
+import dataclasses
+
 import torch
+import torch.distributed as dist
 
 from ..utils import device as _device
 from ..utils import errors
@@ -23,20 +33,54 @@ from ..utils import errors
 DP_AXIS = "dp"
 
 
-def make_mesh(n_devices: int | None = None,
-              device="cuda") -> tuple[torch.device, ...]:
+@dataclasses.dataclass(frozen=True)
+class ProcessMesh:
+    """This process's part of a mesh that spans the processes of a
+    torch.distributed group: `local` holds its ranks' devices, which are
+    global ranks first .. first + len(local) - 1 of `size`. With group None
+    the mesh is all in this process (first 0, size len(local))."""
+    local: tuple
+    group: object
+    first: int
+    size: int
+
+
+def spanning(local, group=None) -> ProcessMesh:
+    """The ProcessMesh of this process's ranks `local` (devices) over
+    `group`: one all_gather_object of every process's rank count, so every
+    process of the group must call it."""
+    local = tuple(_device.resolve(d) for d in local)
+    if group is None:
+        return ProcessMesh(local, None, 0, len(local))
+    counts = [None] * dist.get_world_size(group)
+    dist.all_gather_object(counts, len(local), group=group)
+    return ProcessMesh(local, group, sum(counts[:dist.get_rank(group)]),
+                       sum(counts))
+
+
+def make_mesh(n_devices: int | None = None, device="cuda", group=None):
     """1-D data-parallel mesh: the first n (default: all) CUDA devices, or
     with device="cpu" n virtual ranks on the CPU (n is then required). A
-    CUDA mesh never moves to the CPU: fewer cards than n is an error."""
+    CUDA mesh never moves to the CPU: fewer cards than n is an error.
+
+    With a torch.distributed `group`, a ProcessMesh of this process's ranks
+    (every process of the group must call it): n virtual CPU ranks, or n
+    cards (default 1), cuda:{(group rank * n + j) % device_count} for the
+    j-th, so one process per card by default."""
     kind = _device.resolve(device).type
     if kind == "cpu":
         if n_devices is None or n_devices < 1:
             raise errors.IncorrectUseError(
                 "a CPU mesh needs n_devices >= 1 virtual ranks")
-        return (torch.device("cpu"),) * n_devices
+        local = (torch.device("cpu"),) * n_devices
+        return local if group is None else spanning(local, group)
     have = torch.cuda.device_count()
-    n = have if n_devices is None else n_devices
+    n = (have if group is None else 1) if n_devices is None else n_devices
     if n < 1 or n > have:
         raise errors.IncorrectUseError(
             f"a mesh of {n} CUDA devices requested, {have} present")
-    return tuple(torch.device("cuda", k) for k in range(n))
+    if group is None:
+        return tuple(torch.device("cuda", k) for k in range(n))
+    r = dist.get_rank(group)
+    return spanning([torch.device("cuda", (r * n + j) % have)
+                     for j in range(n)], group)

@@ -17,6 +17,14 @@ package does with collectives the host does here:
       crc32_ncombine, src/zstrm.c:1427-1443). The gzip trailer takes the
       crc32 only, so no adler32 is computed.
 
+A mesh may span the processes of a torch.distributed group (ProcessMesh):
+each process then encodes and reads back its own ranks' shards, and one
+all_gather_object over the group, after the last round, gives every
+process every shard's bytes, crc32 and index, in the manner of the
+reference's process_allgather of members (scripts/multiproc_smoke.py);
+(b) and (d) then run in every process. One process is the group-of-one
+case of the same loop.
+
 Two output modes:
   members: each shard becomes a complete gzip member; the concatenated
     members are a valid multi-member gzip file (RFC 1952 §2.2), and decode
@@ -31,6 +39,7 @@ import zlib
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..codec import deflate as De
 from ..codec import levels
@@ -39,8 +48,8 @@ from ..formats import headers as H
 from ..ops import checksum as cs
 from ..stream import host_inflate as hi
 from ..stream import native, zstrm
-from ..utils import device as _device
-from .mesh import make_mesh
+from ..utils import errors
+from .mesh import ProcessMesh, make_mesh, spanning
 
 HALO = De.HALO
 PAD = De.PAD
@@ -74,16 +83,29 @@ class ShardedDeflater:
     """Mesh-parallel compression, run from the host.
 
     mesh: a sequence of devices, one per rank (repeats allowed), or None
-    for every CUDA device (parallel.mesh.make_mesh()).
+    for every CUDA device (parallel.mesh.make_mesh()). Over several
+    processes: a ProcessMesh (parallel.mesh.make_mesh(group=...)), or this
+    process's devices with the torch.distributed `group`; every process of
+    the group then calls compress with the same bytes and gets the same
+    result.
     """
 
     def __init__(self, mesh=None, level: int = 6, block_size: int = 1 << 16,
                  blocks_per_device: int = 8, mode: str = "members",
-                 verify: bool = False):
+                 verify: bool = False, group=None):
         if mode not in ("members", "stream"):
             raise ValueError(mode)
-        mesh = make_mesh() if mesh is None else mesh
-        self.mesh = tuple(_device.resolve(d) for d in mesh)
+        if mesh is None:
+            mesh = make_mesh(group=group)
+        if not isinstance(mesh, ProcessMesh):
+            mesh = spanning(mesh, group)
+        elif group is not None and group is not mesh.group:
+            raise errors.IncorrectUseError(
+                "the mesh spans another group than `group`")
+        self.mesh = mesh.local
+        self.group = mesh.group
+        self.first = mesh.first
+        self.ndev = mesh.size         # ranks over every process
         self.level = level
         self.bl = block_size
         self.bpd = blocks_per_device
@@ -95,7 +117,7 @@ class ShardedDeflater:
         # device.
         self.verify = verify
         # test seam: fault_hook(k, seg_bytes) -> seg_bytes (possibly
-        # corrupted) lets tests kill one shard's result
+        # corrupted) lets tests kill the result of global rank k's shard
         self.fault_hook = None
         self.retries: list = []
 
@@ -126,17 +148,18 @@ class ShardedDeflater:
         return enc.compress(src[s:s + ln].tobytes(), dictionary=window,
                             final=final)
 
-    @property
-    def ndev(self) -> int:
-        return len(self.mesh)
-
     def compress(self, data: bytes):
         """Returns (blob, info). members mode: a multi-member gzip file, and
         in info each member's (offset, length, input bytes, index). stream
-        mode: one gzip stream with the combined checksum."""
-        bl, bpd, d = self.bl, self.bpd, self.ndev
-        shard_bytes = bl * bpd
+        mode: one gzip stream with the combined checksum.
+
+        Over a group, every process encodes its own ranks' shards, and one
+        gather gives every process every shard (the reference's ordered
+        member gather, process_allgather). Input that differs between the
+        processes, or an error in any process, raises in every process."""
         n = len(data)
+        if self.group is not None:
+            self._same_input(n, zlib.crc32(data))
         if n == 0:
             empty = H.emit_gzip_header() + b"\x03\x00" \
                 + H.emit_gzip_trailer(0, 0)
@@ -144,44 +167,79 @@ class ShardedDeflater:
                 return empty, {"mode": "members",
                                "members": [(0, len(empty), 0)], "n": 0}
             return empty, {"mode": "stream", "n": 0}
-        arr = np.frombuffer(data, np.uint8)
+        err = None
+        try:
+            shards = self._encode_ranks(np.frombuffer(data, np.uint8))
+        except Exception as e:      # reported to the group, then re-raised
+            shards, err = [], e
+        if self.group is not None:
+            shards = self._gather(shards, err)
+        if err is not None:
+            raise err
+        return self._assemble(sorted(shards, key=lambda r: r[0]), n)
+
+    def _same_input(self, n: int, crc: int) -> None:
+        """The first collective: every process must hold the same input."""
+        seen = [None] * dist.get_world_size(self.group)
+        dist.all_gather_object(seen, (n, crc), group=self.group)
+        if any(x != seen[0] for x in seen):
+            raise errors.IncorrectUseError(
+                "the processes of the group compress different inputs "
+                f"(length, crc32 by process: {seen})")
+
+    def _gather(self, shards: list, err) -> list:
+        """Every process's shard records, on every process; raises in every
+        process when one failed (the others' errors travel as text)."""
+        per = [None] * dist.get_world_size(self.group)
+        dist.all_gather_object(
+            per, (shards, None if err is None
+                  else f"{type(err).__name__}: {err}"), group=self.group)
+        failed = [(p, msg) for p, (_, msg) in enumerate(per) if msg]
+        if failed and err is None:
+            raise errors.JDeflateError(
+                "the sharded encode failed in process "
+                + "; in process ".join(f"{p}: {msg}" for p, msg in failed))
+        return [r for recs, _ in per for r in recs]
+
+    def _encode_ranks(self, arr: np.ndarray) -> list:
+        """Encode this process's ranks' shards, round by round. Returns one
+        record per shard: (source offset, compressed bytes, crc32, input
+        bytes, index or None, retried)."""
+        bl, bpd, d = self.bl, self.bpd, self.ndev
+        shard_bytes = bl * bpd
+        n = len(arr)
         chunk = levels.get_level(self.level).chunk
         nch = De._nch(bl, chunk)
         nw = De.words_bound(bl, bpd, chunk)
+        ranks = range(self.first, self.first + len(self.mesh))
 
-        out = bytearray()
-        members = []
-        crc_total = 0
+        shards = []
         for pos in range(0, n, d * shard_bytes):
-            lens = [0] * d
-            dls = [0] * d
-            fins = [-1] * d
-            data_sh = [None] * d
-            for k in range(d):
-                s = pos + k * shard_bytes
-                ln = max(0, min(n - s, shard_bytes))
+            starts = [pos + k * shard_bytes for k in ranks]
+            lens = [max(0, min(n - s, shard_bytes)) for s in starts]
+            dls = [0] * len(starts)
+            fins = [-1] * len(starts)
+            data_sh = [None] * len(starts)
+            for j, (s, ln) in enumerate(zip(starts, lens)):
                 if not ln:
                     continue
-                lens[k] = ln
                 buf = np.zeros(HALO + shard_bytes + PAD, np.uint8)
                 buf[HALO:HALO + ln] = arr[s:s + ln]
                 if self.mode == "stream" and s > 0:
                     h = min(HALO, s)
                     buf[HALO - h:HALO] = arr[s - h:s]
-                    dls[k] = h
+                    dls[j] = h
                 if self.mode == "members" or s + ln >= n:
-                    fins[k] = (ln - 1) // bl
-                data_sh[k] = torch.from_numpy(buf).to(self.mesh[k])
+                    fins[j] = (ln - 1) // bl
+                data_sh[j] = torch.from_numpy(buf).to(self.mesh[j])
             handles = encode_sharded(data_sh, lens, dls, fins, bl, bpd,
                                      self.level, nw)
             crcs = checksums_sharded(data_sh, lens)
-            for k in range(d):
-                ln = lens[k]
+            for j, (k, s, ln) in enumerate(zip(ranks, starts, lens)):
                 if ln == 0:
                     continue
-                s = pos + k * shard_bytes
                 total, body, st, sf, ho, gw, an = De.read_batch(
-                    handles[k], bpd, nch)
+                    handles[j], bpd, nch)
                 final = s + ln >= n
                 if self.mode == "members" or final:
                     seg_bytes = body[: (total + 7) // 8].tobytes()
@@ -192,7 +250,7 @@ class ShardedDeflater:
                                  + b"\x00\x00\xff\xff")
                 if self.fault_hook is not None:
                     seg_bytes = self.fault_hook(k, seg_bytes)
-                index = None
+                crc, index, retried = crcs[j], None, False
                 if self.verify or self.fault_hook is not None:
                     probe = seg_bytes if (self.mode == "members" or final) \
                         else seg_bytes + b"\x03\x00"
@@ -202,27 +260,40 @@ class ShardedDeflater:
                         seg_bytes, index = self._reencode_shard(
                             arr, s, ln,
                             final=(self.mode == "members") or final,
-                            device=self.mesh[k])
-                        crcs[k] = zlib.crc32(arr[s:s + ln])
-                        self.retries.append((s, ln))
-                if self.mode == "members":
-                    mstart = len(out)
-                    hdr = H.emit_gzip_header()
-                    out += hdr
-                    out += seg_bytes
-                    out += H.emit_gzip_trailer(crcs[k], ln)
-                    if index is None:
-                        ib, iy, ia = De.index_entries_from_meta(
-                            bl, bpd, sf, ho, gw, an, st, (ln + bl - 1) // bl,
-                            ln, 0, 0, chunk)
-                        index = {"block_bits": ib, "block_bytes": iy,
-                                 "win": ia, "sync_points": [], "n": ln}
-                    index["header_len"] = len(hdr)
-                    members.append((mstart, len(out) - mstart, ln, index))
-                else:
-                    out += seg_bytes
-                    crc_total = cs.crc32_combine(crc_total, crcs[k], ln)
+                            device=self.mesh[j])
+                        crc, retried = zlib.crc32(arr[s:s + ln]), True
+                if self.mode != "members":
+                    index = None
+                elif index is None:
+                    # the default chunk, as the JAX sharded encoder passes
+                    # (ROADMAP C11)
+                    ib, iy, ia = De.index_entries_from_meta(
+                        bl, bpd, sf, ho, gw, an, st, (ln + bl - 1) // bl,
+                        ln, 0, 0)
+                    index = {"block_bits": ib, "block_bytes": iy,
+                             "win": ia, "sync_points": [], "n": ln}
+                shards.append((s, seg_bytes, crc, ln, index, retried))
+        return shards
 
+    def _assemble(self, shards: list, n: int):
+        """(blob, info) from every shard's record, in shard order."""
+        out = bytearray()
+        members = []
+        crc_total = 0
+        for s, seg_bytes, crc, ln, index, retried in shards:
+            if retried:
+                self.retries.append((s, ln))
+            if self.mode == "members":
+                mstart = len(out)
+                hdr = H.emit_gzip_header()
+                out += hdr
+                out += seg_bytes
+                out += H.emit_gzip_trailer(crc, ln)
+                index["header_len"] = len(hdr)
+                members.append((mstart, len(out) - mstart, ln, index))
+            else:
+                out += seg_bytes
+                crc_total = cs.crc32_combine(crc_total, crc, ln)
         if self.mode == "members":
             return bytes(out), {"mode": "members", "members": members,
                                 "n": n}

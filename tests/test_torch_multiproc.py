@@ -1,0 +1,372 @@
+"""Multi-process data parallel: the port's ShardedDeflater over a
+torch.distributed gloo group, the counterpart of the JAX package's
+jax.distributed sharded encode (scripts/multiproc_smoke.py).
+
+Each layout (processes x local ranks: 2x1, 3x1, 2x2) is one spawn of
+worker processes (this file run as a script), on the CPU with device="cpu"
+and torch on one thread, which runs every case in sequence and writes its
+results under the module's temporary directory. Every process's blob, info
+and retries must equal those of one-process ShardedDeflater on the same
+global rank count (make_mesh(W*L, device="cpu")), computed here, and on
+2x2 also the JAX ShardedDeflater's on four devices of the 8-device CPU mesh
+(tests/conftest.py). Input that differs between the processes, and an
+error in one process, must raise in every process. Tolerance: exact
+equality. Every join has a timeout and kills the workers on expiry.
+
+Worker processes do not run tests/conftest.py, so each is handed the
+parent's capped probe depths (ROADMAP C4) before it encodes.
+"""
+import datetime
+import os
+import pickle
+import subprocess
+import sys
+import time
+
+import pytest
+import torch
+import torch.distributed as dist
+
+from chip_smoke import canonical
+from jdeflate_tpu_torch.codec import levels as tlevels
+from jdeflate_tpu_torch.parallel import mesh as tmesh
+from jdeflate_tpu_torch.parallel import shard as tshard
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+# the sizes of test_torch_parallel.py; level 9 takes 4 KiB blocks, whose
+# 2 KiB splitter chunks show the member index of ROADMAP C11
+BL, BPD, LEVEL = 2048, 2, 6
+L9 = dict(level=9, block_size=4096, blocks_per_device=2)
+JOIN_S = 120          # one spawn, every case included
+PG_TIMEOUT_S = 60     # a collective that waits longer raises
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The tensors here are small; torch's default thread pool only spins
+    against the other test workers' JAX compiles."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _capped_probes():
+    """Both packages run the same (CPU-capped) probe depths,
+    tests/conftest.py; imported here, not at the top, so that the workers,
+    which run this file as a script, import no JAX."""
+    from jdeflate_tpu.codec import levels as jlevels
+    tlevels._PROBE_CAP.update(jlevels._PROBE_CAP)
+
+
+def _zero_12(seg):
+    return seg[:4] + bytes(8) + seg[12:]
+
+
+def _truncate(seg):
+    return seg[:-6] + bytes(6)
+
+
+def _explode(seg):
+    raise RuntimeError("rank fault")
+
+
+HOOKS = {"zero_12": _zero_12, "truncate": _truncate, "explode": _explode}
+
+
+def _killer(rank, how):
+    """A fault hook that hands global rank `rank`'s first shard to
+    HOOKS[how]."""
+    killed = []
+
+    def hook(k, seg):
+        if k == rank and not killed:
+            killed.append(k)
+            return HOOKS[how](seg)
+        return seg
+    return hook
+
+
+@pytest.fixture(scope="module")
+def cases(corpus):
+    """name -> (data, ShardedDeflater keywords, fault hook or None). The
+    first rank of process 1 is global rank `local`, so a hook given
+    "p1" hits process 1 in every layout."""
+    r4 = 4 * BPD * BL
+    base = dict(level=LEVEL, block_size=BL, blocks_per_device=BPD)
+    return {
+        # 3-5 rounds, a ragged tail shard
+        "members": (corpus("text", 2 * r4 + 777), {**base, "mode": "members"},
+                    None),
+        "stream": (corpus("binary", 2 * r4 + 123), {**base, "mode": "stream"},
+                   None),
+        "empty_members": (b"", {**base, "mode": "members"}, None),
+        "empty_stream": (b"", {**base, "mode": "stream"}, None),
+        "level9": (b"".join(corpus(k, 2048) for k in ("text", "random") * 8),
+                   {**L9, "mode": "members"}, None),
+        "fault_members": (corpus("text", 2 * r4 + 50),
+                          {**base, "mode": "members", "verify": True},
+                          ("p1", "zero_12")),
+        "fault_stream": (corpus("binary", 2 * r4 + 50),
+                         {**base, "mode": "stream", "verify": True},
+                         ("p1", "truncate")),
+    }
+
+
+def _worker(job_path: str, rank: int) -> None:
+    """One process of a spawn: join the gloo group, run every case of the
+    job in sequence, write {case: result} to out<rank>.pkl."""
+    with open(job_path, "rb") as f:
+        job = pickle.load(f)
+    torch.set_num_threads(1)
+    tlevels._PROBE_CAP.update(job["probe_cap"])
+    world, local = job["world"], job["local"]
+    dist.init_process_group(
+        "gloo", init_method="file://" + job["init"], world_size=world,
+        rank=rank, timeout=datetime.timedelta(seconds=PG_TIMEOUT_S))
+    group = dist.group.WORLD
+    res = {}
+    try:
+        if job["device"] == "cpu":
+            mesh = tmesh.make_mesh(local, device="cpu", group=group)
+        else:
+            mesh = tmesh.make_mesh(group=group)
+        res["mesh"] = (tuple(str(d) for d in mesh.local), mesh.first,
+                       mesh.size)
+        for name, (data, kw, hook) in job["cases"].items():
+            if name == "mismatch":
+                data = data + bytes([rank])
+            enc = tshard.ShardedDeflater(mesh=mesh, **kw)
+            if hook is not None:
+                enc.fault_hook = _killer(local if hook[0] == "p1"
+                                         else hook[0], hook[1])
+            try:
+                blob, info = enc.compress(data)
+                res[name] = ("ok", blob, info, enc.retries)
+            except Exception as e:
+                res[name] = ("raised", type(e).__name__, str(e))
+        if job["device"] == "cpu":
+            res["rules"] = _group_mesh_rules(group)
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(os.path.dirname(job_path), f"out{rank}.pkl"),
+              "wb") as f:
+        pickle.dump(res, f)
+
+
+def _group_mesh_rules(group) -> dict:
+    """What make_mesh and ShardedDeflater do with a group in a process
+    without a card: name -> the error's class name, or None."""
+    out = {}
+    for name, call in (
+            ("cpu_without_n", lambda: tmesh.make_mesh(device="cpu",
+                                                      group=group)),
+            ("cuda_without_card", lambda: tmesh.make_mesh(group=group)),
+            ("deflater_without_card",
+             lambda: tshard.ShardedDeflater(group=group))):
+        try:
+            call()
+            out[name] = None
+        except Exception as e:
+            out[name] = type(e).__name__
+    return out
+
+
+def _spawn(tmp, world: int, local: int, job_cases: dict, device="cpu"):
+    """Start `world` workers on a job in directory tmp."""
+    tmp.mkdir(parents=True, exist_ok=True)
+    job = {"probe_cap": dict(tlevels._PROBE_CAP), "world": world,
+           "local": local, "device": device, "init": str(tmp / "pg"),
+           "cases": job_cases}
+    with open(tmp / "job.pkl", "wb") as f:
+        pickle.dump(job, f)
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        filter(None, [REPO, os.environ.get("PYTHONPATH")]))}
+    procs = []
+    for r in range(world):
+        log = open(tmp / f"log{r}.txt", "wb")
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), str(tmp / "job.pkl"),
+             str(r)], stdout=log, stderr=subprocess.STDOUT, cwd=REPO,
+            env=env))
+        log.close()
+    return procs
+
+
+def _join(procs, tmp, timeout: float = JOIN_S) -> list:
+    """Wait for every worker (killing all of them once `timeout` seconds
+    have passed) and return each one's results; fail on a timeout or a
+    worker that failed."""
+    deadline = time.monotonic() + timeout
+    try:
+        for p in procs:
+            p.wait(timeout=max(deadline - time.monotonic(), 0.1))
+    except subprocess.TimeoutExpired:
+        pytest.fail(f"workers did not finish in {timeout} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    outs = []
+    for r, p in enumerate(procs):
+        log = (tmp / f"log{r}.txt").read_text(errors="replace")
+        assert p.returncode == 0, f"worker {r} failed:\n{log[-4000:]}"
+        with open(tmp / f"out{r}.pkl", "rb") as f:
+            outs.append(pickle.load(f))
+    return outs
+
+
+def _one_process(cases, nranks):
+    """One-process ShardedDeflater on nranks CPU ranks, every case."""
+    mesh = tmesh.make_mesh(nranks, device="cpu")
+    want = {}
+    for name, (data, kw, hook) in cases.items():
+        enc = tshard.ShardedDeflater(mesh=mesh, **kw)
+        if hook is not None:
+            enc.fault_hook = _killer(hook[0], hook[1])
+        blob, info = enc.compress(data)
+        want[name] = ("ok", blob, info, enc.retries)
+    return want
+
+
+LAYOUTS = [(2, 1), (3, 1), (2, 2)]
+NAMES = ["members", "stream", "empty_members", "empty_stream", "level9",
+         "fault_members", "fault_stream"]
+
+
+def _run_layout(world, local, cases, tmp):
+    """One spawn of `world` processes x `local` ranks running every case,
+    plus the cases that must raise; the one-process results are computed
+    here while the workers run. Returns (the workers' results, one-process
+    results)."""
+    job_cases = {name: (data, kw, hook if hook is None
+                        else ("p1", hook[1]))
+                 for name, (data, kw, hook) in cases.items()}
+    base = cases["members"][1]
+    job_cases["mismatch"] = (cases["members"][0], base, None)
+    job_cases["explode"] = (cases["members"][0], base, ("p1", "explode"))
+    job_cases["after_errors"] = cases["members"]
+    procs = _spawn(tmp, world, local, job_cases)
+    try:
+        want = _one_process({name: (data, kw, hook if hook is None
+                                    else (local, hook[1]))
+                             for name, (data, kw, hook) in cases.items()},
+                            world * local)
+    finally:
+        outs = _join(procs, tmp)
+    return outs, want
+
+
+@pytest.fixture(scope="module")
+def spawns(cases, tmp_path_factory):
+    """layout -> _run_layout's result, each layout spawned once."""
+    done = {}
+
+    def get(world, local):
+        if (world, local) not in done:
+            done[world, local] = _run_layout(
+                world, local, cases,
+                tmp_path_factory.mktemp(f"mp{world}x{local}"))
+        return done[world, local]
+    return get
+
+
+@pytest.fixture(scope="module", params=LAYOUTS,
+                ids=lambda x: f"{x[0]}x{x[1]}")
+def spawned(request, spawns):
+    """(layout, the workers' results, one-process results)."""
+    return (request.param, *spawns(*request.param))
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_group_matches_one_process(spawned, name):
+    """Every process of the group gives the blob, info and retries of one
+    process on the same global rank count: both modes, empty input,
+    level 9, verify with the fault hook on a rank of process 1."""
+    _, outs, want = spawned
+    for r, out in enumerate(outs):
+        assert out[name][0] == "ok", (r, out[name])
+        assert canonical(out[name]) == canonical(want[name]), r
+    if name.startswith("fault"):
+        assert want[name][3], "the fault hook caused no retry"
+
+
+def test_group_mesh(spawned):
+    """The global mesh is every process's ranks in process-rank order; a
+    CPU mesh needs n, and a CUDA one a card, with a group as without."""
+    (world, local), outs, _ = spawned
+    for r, out in enumerate(outs):
+        assert out["mesh"] == (("cpu",) * local, r * local, world * local)
+        if not torch.cuda.is_available():
+            assert out["rules"] == dict.fromkeys(
+                ("cpu_without_n", "cuda_without_card",
+                 "deflater_without_card"), "IncorrectUseError")
+
+
+def test_group_errors_raise_everywhere(spawned):
+    """Different input in each process raises IncorrectUseError in every
+    process; an error in process 1 raises there and in every other
+    process; the group then still works."""
+    _, outs, want = spawned
+    for r, out in enumerate(outs):
+        assert out["mismatch"][:2] == ("raised", "IncorrectUseError"), r
+        if r == 1:
+            assert out["explode"][1:] == ("RuntimeError", "rank fault")
+        else:
+            assert out["explode"][:2] == ("raised", "JDeflateError"), r
+            assert "process 1: RuntimeError: rank fault" in out["explode"][2]
+        assert canonical(out["after_errors"]) == canonical(want["members"]), r
+
+
+@pytest.fixture(scope="module")
+def jax_4ranks(cases):
+    """The JAX ShardedDeflater on four devices of the 8-device CPU mesh,
+    every case, with the hook on global rank 2 (process 1 of 2x2)."""
+    from jdeflate_tpu.codec import levels as jlevels
+    from jdeflate_tpu.parallel import mesh as jmesh
+    from jdeflate_tpu.parallel import shard as jshard
+    assert tlevels._PROBE_CAP == jlevels._PROBE_CAP
+    mesh = jmesh.make_mesh(4)
+    want = {}
+    for name, (data, kw, hook) in cases.items():
+        enc = jshard.ShardedDeflater(mesh=mesh, **kw)
+        if hook is not None:
+            enc.fault_hook = _killer(2, hook[1])
+        blob, info = enc.compress(data)
+        want[name] = ("ok", blob, info, enc.retries)
+    return want
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_2x2_matches_jax(spawns, jax_4ranks, name):
+    """2 processes x 2 local ranks give the JAX package's blob, info and
+    retries on four ranks."""
+    outs, _ = spawns(2, 2)
+    for r, out in enumerate(outs):
+        assert canonical(out[name]) == canonical(jax_4ranks[name]), r
+
+
+@pytest.mark.cuda
+def test_two_processes_on_one_card(cases, tmp_path):
+    """Two gloo processes with one rank each on cuda:0 give the members
+    blob and info of one process on ["cuda:0"] * 2."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    data, kw, _ = cases["members"]
+    procs = _spawn(tmp_path, 2, 1, {"members": (data, kw, None)},
+                   device="cuda")
+    try:
+        enc = tshard.ShardedDeflater(mesh=["cuda:0"] * 2, **kw)
+        want = ("ok", *enc.compress(data), [])
+    finally:
+        outs = _join(procs, tmp_path, timeout=300)
+    for r, out in enumerate(outs):
+        assert out["mesh"] == (("cuda:0",), r, 2)
+        assert canonical(out["members"]) == canonical(want), r
+
+
+if __name__ == "__main__":
+    _worker(sys.argv[1], int(sys.argv[2]))

@@ -219,31 +219,27 @@ def test_verify_without_fault_is_clean(corpus, meshes):
     assert not t.retries
 
 
-def test_level9_member_index_covers_every_sub_block(corpus, meshes):
-    """ROADMAP C11: at levels 8-9 the splitter works in 2 KiB chunks. The
-    port builds each member's index with the level's chunk, so it lists
-    every sub-block and every member decodes on the card; the JAX sharded
-    encoder uses the 8 KiB default and lists only sub-blocks on 8 KiB
-    seams, so the card decodes only part of each member. The blobs are
-    equal."""
+def test_level9_member_index_matches_jax(corpus, meshes):
+    """ROADMAP C11: at levels 8-9 the splitter works in 2 KiB chunks, but
+    the JAX sharded encoder builds each member's index with the 8 KiB
+    default chunk, so it lists only the sub-blocks on 8 KiB seams. The port
+    follows the reference: the same blobs and the same index, and each
+    member's windowed batch stops short of the member's 8 KiB, the native
+    decoder doing the rest, on both blobs."""
     bl = 4096
     data = b"".join(corpus(k, 2048) for k in ("text", "random") * 4)
     t, j = _pair(meshes, "members", level=9, bl=bl, bpd=2)
     tb, ti = t.compress(data)
     jb, ji = j.compress(data)
     assert tb == jb
+    _same_info(ti, ji)
     got = [m[3]["block_bytes"] for m in ti["members"]]
     want = [m[3]["block_bytes"] for m in ji["members"]]
-    assert got == [[0, 2048, 4096, 6144]] * 2
-    assert want == [[0, 4096]] * 2
-    tinf.STATS_LOG.clear()
-    assert tshard.decompress_members(tb, ti, device="cpu") == data
-    assert [p for _, p, _ in tinf.STATS_LOG] == [8192, 8192]
-    tinf.STATS_LOG.clear()
-    assert tshard.decompress_members(jb, ji, device="cpu") == data
-    # each member's windowed batch stops short of the member's 8 KiB, and
-    # the native decoder does the rest
-    assert [p for _, p, _ in tinf.STATS_LOG] == [4096, 4096]
+    assert got == want == [[0, 4096]] * 2
+    for blob, info in ((tb, ti), (jb, ji)):
+        tinf.STATS_LOG.clear()
+        assert tshard.decompress_members(blob, info, device="cpu") == data
+        assert [p for _, p, _ in tinf.STATS_LOG] == [4096, 4096]
 
 
 def test_mesh_rules():
