@@ -44,8 +44,14 @@ RANK, started by the script itself), every rank on cuda:0: 4 processes x
 processes x 2 ranks with verify=True and the fault hook on global rank 1;
 every process's blob, info and retries must equal the one-process run's,
 and the match walk is held to its plain version on each worker's first
-round. Each path's kernel launches are counted from zero around it
-(path_launches in the kernels line). Each kernel is
+round. Levels and bench (phase 14): the first 256 KiB encoded at levels 1
+and 9 on the card and on the CPU must give equal streams and indexes, the
+match walk held to its plain version on their batches; then the port's
+bench (python3 -m jdeflate_tpu_torch.bench, BENCH_CORPUS_MB=8) runs in a
+subprocess: its line is printed, and it must round-trip with a value above
+0, print the card's share of its decode, run its five config rows without
+an error and import no jax. Each path's kernel launches are counted from
+zero around it (path_launches in the kernels line). Each kernel is
 held against its plain PyTorch version on the main path's inputs, the
 encoder's integer stages on the card against the same stages on the CPU,
 and everything is timed. The walk (B1) is held to its plain version on
@@ -90,6 +96,8 @@ SHARD_RANKS = 4               # sharded encode: four ranks on cuda:0
 SHARD_STREAM_MB = 8           # sharded stream mode and the retry run
 MP_WORKER_S = 300             # multi-process phase: each spawn's limit
 PROFILE_MB = 4                # ZStream and sharded paths: profiled slice
+LEVELS_KB = 256               # phase 14a: levels 1 and 9, card and CPU
+BENCH_S = 600                 # phase 14b: the bench subprocess's limit
 _T0 = time.perf_counter()
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate (data sheet)
 BATCH = dict(max_batch_bits=1 << 25, max_batch_blocks=256,
@@ -422,24 +430,10 @@ def corpus_halo(data: bytes, o0: int):
     return halo
 
 
-def card_bytes(stats: list) -> tuple[int, int]:
-    """(bytes of device batches, bytes of stored copies) of one decompress,
-    from its last_stats: the batches up to the first that errs; the native
-    decoder produced the rest."""
-    card = host = 0
-    for k, p, e in stats:
-        if e:
-            break
-        if k == "stored":
-            host += p
-        else:
-            card += p
-    return card, host
-
-
 def card_share(runs: list, n: int) -> str:
     """Who produced the n output bytes of the decompress calls whose
     last_stats are `runs`."""
+    from jdeflate_tpu_torch.codec.inflate import card_bytes
     card = sum(card_bytes(r)[0] for r in runs)
     host = sum(card_bytes(r)[1] for r in runs)
     return (f"the card produced {card} B ({100 * card / n:.1f}%), stored "
@@ -1865,6 +1859,106 @@ def multiproc_phase(data: bytes, card: str, ref: dict) -> tuple:
     return launches, b3_err
 
 
+def levels_phase(data: bytes, card: str) -> tuple:
+    """Phase 14a: the encoder at levels 1 (greedy, 2 probes) and 9 (lazy,
+    512 probes, 2 KiB split chunks, two-queue trees) on the card, over the
+    first LEVELS_KB KiB in 64 KiB blocks, one batch of 4: the stream and
+    index must equal the CPU's, zlib must inflate it, and the match walk
+    (B3) is held to its plain version on every batch of both levels.
+    Returns (B3 launches by level, B3's max abs err)."""
+    import torch
+    from jdeflate_tpu_torch.codec import deflate as D
+    from jdeflate_tpu_torch.ops import lz77
+    part = data[:LEVELS_KB << 10]
+    kw = dict(block_size=1 << 16, batch=4)
+    launches, err = {}, 0
+    for level in (1, 9):
+        enc = D.RawDeflater(level=level, device="cuda", **kw)
+        enc.capture_calls = True
+        lz77.match_walk.launches = 0
+        t0 = time.perf_counter()
+        raw, idx = enc.compress(part)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        n = lz77.match_walk.launches
+        calls, statics = list(enc.last_calls), enc.call_statics
+        t0 = time.perf_counter()
+        craw, cidx = D.RawDeflater(level=level, device="cpu",
+                                   **kw).compress(part)
+        cpu_s = time.perf_counter() - t0
+        if raw != craw:
+            k = next((i for i, (a, b) in enumerate(zip(raw, craw)) if a != b),
+                     min(len(raw), len(craw)))
+            fail(f"level {level}: the card's stream ({len(raw)} B) differs "
+                 f"from the CPU's ({len(craw)} B) first at byte {k}")
+        if canonical(idx) != canonical(cidx):
+            fail(f"level {level}: the card's index differs from the CPU's")
+        if zlib.decompress(raw, -15) != part:
+            fail(f"level {level}: zlib does not inflate the card's stream")
+        if n != len(calls) or n == 0:
+            fail(f"level {level}: match walk launches {n} != "
+                 f"{len(calls)} batches")
+        win = match_walk_inputs([(*c, *statics) for c in calls])
+        err = max(err, match_walk_checks(win, statics[0], synthetic=False))
+        launches[f"level{level}_{LEVELS_KB}KiB"] = n
+        print(f"level {level} ({card}): {len(part)} B -> {len(raw)} B on the "
+              f"card ({card_s:.2f} s, first call) and on the CPU "
+              f"({cpu_s:.2f} s), byte-equal with equal indexes; zlib "
+              f"inflates it; match walk launches {n}, equal to its plain "
+              f"version on every batch (max abs err {err})", flush=True)
+    return launches, err
+
+
+def bench_phase(card: str) -> None:
+    """Phase 14b: the port's bench (python3 -m jdeflate_tpu_torch.bench) in
+    a subprocess at BENCH_CORPUS_MB=8, within BENCH_S seconds. Its line is
+    printed; it must exit 0 with a round trip, a value above 0 and the
+    card's share of the headline decode, every config row without an error
+    and with every round trip true, and no jax in its process."""
+    path = os.path.join(REPO, "jdeflate_tpu_torch", "_build",
+                        "bench_details.json")
+    with contextlib.suppress(FileNotFoundError):
+        os.remove(path)
+    env = {**os.environ, "BENCH_CORPUS_MB": "8", "BENCH_LEVEL": "6",
+           "BENCH_SKIP_EXTRA": "", "BENCH_PROFILE": ""}
+    env.pop("JDT_EXPAND", None)
+    t0 = time.perf_counter()
+    try:
+        r = subprocess.run([sys.executable, "-m", "jdeflate_tpu_torch.bench"],
+                           cwd=REPO, env=env, capture_output=True, text=True,
+                           timeout=BENCH_S)
+    except subprocess.TimeoutExpired:
+        fail(f"the bench did not finish within {BENCH_S} s")
+    took = time.perf_counter() - t0
+    out = r.stdout.strip().splitlines()
+    if r.returncode != 0 or not out:
+        fail(f"the bench exited {r.returncode}: {r.stderr[-2000:]}")
+    print(f"bench line: {out[-1]}", flush=True)
+    line = json.loads(out[-1])
+    with open(path) as f:
+        details = json.load(f)
+    if not line["value"] > 0 or details.get("roundtrip_exact") is not True:
+        fail(f"bench: value {line['value']}, round trip "
+             f"{details.get('roundtrip_exact')}")
+    if "decode_card_share" not in line:
+        fail("bench: no decode_card_share in its line")
+    rows = details.get("configs", {})
+    if len(rows) != 5:
+        fail(f"bench: config rows {sorted(rows)}")
+    for name, row in rows.items():
+        checks = [v for k, v in row.items()
+                  if k == "roundtrip" or k.endswith("_ok")]
+        if "error" in row or not checks or not all(v is True
+                                                   for v in checks):
+            fail(f"bench row {name}: {row}")
+    if details.get("jax_imported") is not False:
+        fail("the bench's process imported jax or jdeflate_tpu")
+    print(f"bench details: {json.dumps(details)}", flush=True)
+    print(f"bench phase ({card}): {took:.1f} s; rows "
+          + ", ".join(sorted(rows)) + " without error, every round trip "
+          "true; no jax in the bench's process", flush=True)
+
+
 def walk_checks(per: list, calls: list, synthetic: bool = True) -> int:
     """Kernel B1 (csrc/walk.cu) against its plain version: on every
     windowed batch, tokens and meta against walk_windows_ref and outlen,
@@ -2238,11 +2332,18 @@ def main() -> None:
     stamp("multi-process phase")
     torch.cuda.empty_cache()
     mp_launches, mp_b3_err = multiproc_phase(data, card, sh_ref)
+    stamp("levels and bench phase")
+    t0 = time.perf_counter()
+    lv_launches, lv_b3_err = levels_phase(data, card)
+    torch.cuda.empty_cache()
+    bench_phase(card)
+    print(f"phase 14: {time.perf_counter() - t0:.1f} s", flush=True)
     stamp("done")
     enc_kernel["path_launches"] = {"zstream_deflate": zs_launches,
-                                   **sh_launches, **mp_launches}
+                                   **sh_launches, **mp_launches,
+                                   **lv_launches}
     enc_kernel["max_abs_err"] = max(enc_kernel["max_abs_err"], sh_b3_err,
-                                    mp_b3_err)
+                                    mp_b3_err, lv_b3_err)
 
     kernels = [
         {"name": "walk", "route": "cuda",

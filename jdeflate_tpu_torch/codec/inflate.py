@@ -49,6 +49,21 @@ HALO = C.WINDOW_SIZE
 # appends.
 STATS_LOG: list = []
 
+
+def card_bytes(stats: list) -> tuple[int, int]:
+    """(bytes of device batches, bytes of stored copies) of one decompress,
+    from its last_stats: the batches up to the first that errs; the native
+    decoder produced the rest."""
+    card = host = 0
+    for k, p, e in stats:
+        if e:
+            break
+        if k == "stored":
+            host += p
+        else:
+            card += p
+    return card, host
+
 SEG_BITS = 64   # strided-speculation segment width (== record slots per walk)
 
 
