@@ -50,7 +50,16 @@ match walk held to its plain version on their batches; then the port's
 bench (python3 -m jdeflate_tpu_torch.bench, BENCH_CORPUS_MB=8) runs in a
 subprocess: its line is printed, and it must round-trip with a value above
 0, print the card's share of its decode, run its five config rows without
-an error and import no jax. Each path's kernel launches are counted from
+an error and import no jax. Programs (phase 15): with the captured
+programs cleared, RawDeflater at levels 1, 6 and 9, ZStream("deflate")
+and ShardedDeflater (members and stream, four ranks of cuda:0) run as
+captured CUDA graphs (the card's default, which every earlier phase ran)
+and under program.eager(); streams, indexes and window anchors must be
+byte-equal (sha256) and the match walk's launches equal, and
+RawDeflater.launch (Phase 1) must make no synchronising call under
+torch.cuda.set_sync_debug_mode("error"); walls, graphs captured, capture
+times and the checksums' time per call are printed. Each path's kernel
+launches are counted from
 zero around it (path_launches in the kernels line). Each kernel is
 held against its plain PyTorch version on the main path's inputs, the
 encoder's integer stages on the card against the same stages on the CPU,
@@ -98,6 +107,8 @@ MP_WORKER_S = 300             # multi-process phase: each spawn's limit
 PROFILE_MB = 4                # ZStream and sharded paths: profiled slice
 LEVELS_KB = 256               # phase 14a: levels 1 and 9, card and CPU
 BENCH_S = 600                 # phase 14b: the bench subprocess's limit
+PROGRAM_MB = 8                # phase 15: levels 1 and 6, ZStream, sharded
+PROGRAM_L9_MB = 2             # phase 15: level 9
 _T0 = time.perf_counter()
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate (data sheet)
 BATCH = dict(max_batch_bits=1 << 25, max_batch_blocks=256,
@@ -1485,7 +1496,7 @@ def sharded_phase(data: bytes, card: str) -> tuple:
     nshard = -(-len(data) // (enc.bl * enc.bpd))
     calls, secs = [], []
     lz77.match_walk.launches = 0
-    with wrapped(D, "encode_batch",
+    with wrapped(D, "launch_batch",
                  after=lambda a, k, r, sec: calls.append(a)), \
             checksum_calls(secs):
         (blob, info), wall, span = one_run(lambda: enc.compress(data))
@@ -1758,7 +1769,7 @@ def mp_worker(job_path: str, rank: int) -> None:
         calls, gsecs, secs = [], [], []
         torch.cuda.synchronize()
         lz77.match_walk.launches = 0
-        with wrapped(D, "encode_batch",
+        with wrapped(D, "launch_batch",
                      after=lambda a, k, r, sec: calls.append(a)
                      if len(calls) < local else None), \
                 wrapped(dist, "all_gather_object",
@@ -1957,6 +1968,147 @@ def bench_phase(card: str) -> None:
     print(f"bench phase ({card}): {took:.1f} s; rows "
           + ", ".join(sorted(rows)) + " without error, every round trip "
           "true; no jax in the bench's process", flush=True)
+
+
+def program_phase(data: bytes, card: str) -> dict:
+    """Phase 15: the captured encode and checksum programs
+    (jdeflate_tpu_torch/codec/program.py, the card's default, which every
+    earlier phase ran) against the eager path (program.eager()), the
+    program cache cleared first. RawDeflater at levels 1 and 6 over the
+    first PROGRAM_MB MiB and level 9 over the first PROGRAM_L9_MB MiB (64
+    KiB blocks in batches of 16), ZStream("deflate") in ZS_WRITE-byte
+    writes and ShardedDeflater members and stream on SHARD_RANKS ranks of
+    cuda:0 over the first PROGRAM_MB MiB: in each, the stream (blob), the
+    index and its window anchors are byte-equal (sha256) between the two
+    paths, and so are the match walk's launches (replays count theirs).
+    Phase 1 of RawDeflater (launch) runs under
+    torch.cuda.set_sync_debug_mode("error") in both paths, after a warm
+    run. Printed: each path's wall and device span, the graphs captured and
+    their capture time (in the first run), the device busy share of the
+    level-6 encode of PROFILE_MB MiB in both paths, and crc32's and
+    adler32's time per call on 1 MiB and 8 MiB in both paths. Returns B3's
+    launches by captured run."""
+    import hashlib
+    import torch
+    from jdeflate_tpu_torch.codec import deflate as D
+    from jdeflate_tpu_torch.codec import program
+    from jdeflate_tpu_torch.ops import checksum as cs
+    from jdeflate_tpu_torch.ops import lz77
+    from jdeflate_tpu_torch.parallel import shard
+    from jdeflate_tpu_torch.stream import zstrm
+
+    def digest(x) -> str:
+        b = x if isinstance(x, bytes) else repr(canonical(x)).encode()
+        return hashlib.sha256(b).hexdigest()[:16]
+
+    def both(name, fn, out_digest):
+        """fn() captured (a first run that captures, then a timed one) and
+        eager (a warm run, then a timed one); fail unless the two give the
+        same digest and match walk launches."""
+        st0 = dict(program.stats)
+        _, first, _ = one_run(fn)
+        caps = program.stats["captures"] - st0["captures"]
+        cap_s = program.stats["capture_s"] - st0["capture_s"]
+        lz77.match_walk.launches = 0
+        res, wall, span = one_run(fn)
+        n_cap = lz77.match_walk.launches
+        with program.eager():
+            fn()
+            lz77.match_walk.launches = 0
+            eres, ewall, espan = one_run(fn)
+            n_eager = lz77.match_walk.launches
+        dg, edg = out_digest(res), out_digest(eres)
+        if dg != edg or n_cap != n_eager:
+            fail(f"phase 15 {name}: captured {dg} ({n_cap} match walk "
+                 f"launches) != eager {edg} ({n_eager})")
+        print(f"program {name} ({card}): captured wall {wall * 1e3:.1f} ms, "
+              f"span {span * 1e3:.1f} ms; eager wall {ewall * 1e3:.1f} ms, "
+              f"span {espan * 1e3:.1f} ms ({ewall / wall:.2f}x); first "
+              f"captured run {first * 1e3:.1f} ms with {caps} graphs "
+              f"captured in {cap_s * 1e3:.1f} ms; sha256 {dg} equal; match "
+              f"walk launches {n_cap} in both", flush=True)
+        return n_cap
+
+    program.clear()
+    launches = {}
+    kw = dict(block_size=1 << 16, batch=16)
+    for level, mb in ((1, PROGRAM_MB), (6, PROGRAM_MB), (9, PROGRAM_L9_MB)):
+        part = data[:mb << 20]
+        enc = D.RawDeflater(level=level, device="cuda", **kw)
+        launches[f"program_level{level}"] = both(
+            f"RawDeflater level {level}, {mb} MiB",
+            lambda: enc.compress(part),
+            lambda r: (digest(r[0]), digest(r[1]), digest(r[1]["win"])))
+        # Phase 1 alone, warm, with every synchronising CUDA call an error
+        for mode in ("captured", "eager"):
+            with program.eager() if mode == "eager" \
+                    else contextlib.nullcontext():
+                torch.cuda.synchronize()
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    launched = enc.launch(part)
+                except RuntimeError as e:
+                    fail(f"level {level} {mode}: Phase 1 synchronised: {e}")
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+                if digest(enc.finish(launched)[0]) != digest(
+                        enc.compress(part)[0]):
+                    fail(f"level {level} {mode}: launch + finish differs")
+        print(f"level {level}: Phase 1 (launch) made no synchronising call "
+              f"under set_sync_debug_mode('error'), captured and eager",
+              flush=True)
+    part = data[:PROGRAM_MB << 20]
+    enc = D.RawDeflater(level=6, device="cuda", **kw)
+    profile_slice("program: level-6 encode, captured",
+                  lambda: enc.compress(part[:PROFILE_MB << 20]))
+    with program.eager():
+        profile_slice("program: level-6 encode, eager",
+                      lambda: enc.compress(part[:PROFILE_MB << 20]))
+
+    def zdeflate():
+        pieces = []
+        z = zstrm.ZStream("deflate", format="gzip", target_fn=pieces.append,
+                          device="cuda", level=6, **kw)
+        for pos in range(0, len(part), ZS_WRITE):
+            z.write(part[pos:pos + ZS_WRITE])
+        z.flush(final=True)
+        return b"".join(pieces), z.crc32
+    launches["program_zstream"] = both(
+        f"ZStream deflate, {PROGRAM_MB} MiB", zdeflate,
+        lambda r: (digest(r[0]), r[1] == zlib.crc32(part)
+                   or fail("phase 15 ZStream: crc32 differs from zlib's")))
+    mesh = [torch.device("cuda", 0)] * SHARD_RANKS
+    for mode in ("members", "stream"):
+        senc = shard.ShardedDeflater(mesh=mesh, level=6, mode=mode)
+        launches[f"program_sharded_{mode}"] = both(
+            f"sharded {mode}, {PROGRAM_MB} MiB", lambda: senc.compress(part),
+            lambda r: (digest(r[0]), digest(r[1])))
+
+    for mb in (1, 8):
+        buf = data[:mb << 20]
+        row = []
+        for name, fn, ref in (("crc32", cs.crc32, zlib.crc32),
+                              ("adler32", cs.adler32, zlib.adler32)):
+            if fn(buf) != ref(buf):
+                fail(f"phase 15: {name} of {mb} MiB differs from zlib's")
+            per = []
+            for ctx in (contextlib.nullcontext, program.eager):
+                with ctx():
+                    fn(buf)
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    for _ in range(5):
+                        fn(buf)
+                    per.append((time.perf_counter() - t0) / 5 * 1e3)
+            row.append(f"{name} captured {per[0]:.3f} ms, eager "
+                       f"{per[1]:.3f} ms")
+        print(f"checksums per call on {mb} MiB of bytes ({card}): "
+              + "; ".join(row), flush=True)
+    print(f"program cache: {len(program._programs)} programs, "
+          f"{program.stats['captures']} captures in "
+          f"{program.stats['capture_s']:.1f} s, "
+          f"{program.stats['replays']} replays this run", flush=True)
+    return launches
 
 
 def walk_checks(per: list, calls: list, synthetic: bool = True) -> int:
@@ -2338,10 +2490,14 @@ def main() -> None:
     torch.cuda.empty_cache()
     bench_phase(card)
     print(f"phase 14: {time.perf_counter() - t0:.1f} s", flush=True)
+    stamp("program phase")
+    t0 = time.perf_counter()
+    pg_launches = program_phase(data, card)
+    print(f"phase 15: {time.perf_counter() - t0:.1f} s", flush=True)
     stamp("done")
     enc_kernel["path_launches"] = {"zstream_deflate": zs_launches,
                                    **sh_launches, **mp_launches,
-                                   **lv_launches}
+                                   **lv_launches, **pg_launches}
     enc_kernel["max_abs_err"] = max(enc_kernel["max_abs_err"], sh_b3_err,
                                     mp_b3_err, lv_b3_err)
 

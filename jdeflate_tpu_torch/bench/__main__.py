@@ -74,13 +74,13 @@ def zlib_raw(data: bytes, level: int) -> bytes:
 def _device_times(calls, enc_calls, statics, iters: int = 4) -> dict:
     """decode_device_ms per decode batch (the captured first windowed batch
     of each input, replayed through decode_batch_windows_stacked) and
-    encode_device_ms per encode segment (encode_batch on the captured
-    first segment): the span per call from CUDA events; dev_ms beside each
-    is its kernels' own time."""
+    encode_device_ms per encode segment (launch_batch, the encode program
+    as RawDeflater runs it, on the captured first segment): the span per
+    call from CUDA events; dev_ms beside each is its kernels' own time."""
     engine = int(os.environ.get("JDT_EXPAND", "2") or 2)
     d = devtime.measure(
         calls, lambda *c: I.decode_batch_windows_stacked(*c, engine), iters)
-    e = devtime.measure(enc_calls, lambda *a: De.encode_batch(*a, *statics),
+    e = devtime.measure(enc_calls, lambda *a: De.launch_batch(*a, *statics),
                         iters)
     oc = int(calls[0][6])
     seg = statics[0] * statics[1]

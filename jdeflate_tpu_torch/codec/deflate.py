@@ -24,6 +24,8 @@ gathers on integers, which are exact.
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -31,6 +33,7 @@ from ..formats import constants as C
 from ..ops import bitpack, huffman, lz77
 from ..utils import device as _device
 from . import levels as levels_mod
+from . import program
 
 HALO = C.WINDOW_SIZE          # per-block history (previous block tail / dict)
 PAD = 272                     # match-extension overread guard
@@ -67,6 +70,46 @@ def words_bound(bl: int, batch: int, chunk: int = CHUNK) -> int:
 
 def _t(a, dev):
     return torch.as_tensor(np.asarray(a), dtype=_I64, device=dev)
+
+
+# The constant tables live on each device once: a captured program cannot
+# upload. Every user only reads them.
+@functools.lru_cache(maxsize=None)
+def _tables(dev: torch.device) -> dict:
+    """The fixed code tables and extra-bit counts on `dev`."""
+    NL, ND = C.NUM_LITLEN_USED, C.NUM_DIST_USED
+    return {
+        "lext_bits": _t(np.concatenate([np.zeros(257, np.int64),
+                                        C.LENGTH_EXTRA]), dev),
+        "dext_bits": _t(C.DIST_EXTRA, dev),
+        "porder": _t(C.PRECODE_ORDER, dev),
+        "pextra": _t(_P_EXTRA, dev),
+        "fll": _t(C.FIXED_LITLEN_LENGTHS[:NL], dev),
+        "flr": _t(C.FIXED_LITLEN_CODES_REV[:NL], dev),
+        "fdr": _t(C.FIXED_DIST_CODES_REV[:ND], dev),
+        "fdl": _t(C.FIXED_DIST_LENGTHS[:ND], dev),
+    }
+
+
+@functools.lru_cache(maxsize=None)
+def _item_layout(nch: int, CS: int, dev: torch.device):
+    """(owning chunk of each item, symbol-item mask) of the virtual item
+    layout of nch chunks of stride CS, on `dev`: the eob slot of chunk c
+    belongs to chunk c - 1, its header items to no symbol, its token items
+    and the final EOB to symbols."""
+    nitems = nch * CS + 1
+    kind = np.zeros(nitems, np.int64)             # 0 hdr, 1 token, 2 eob
+    sc_np = np.zeros(nitems, np.int64)            # owning chunk per item
+    for c in range(nch):
+        base = c * CS
+        kind[base] = 2
+        sc_np[base] = max(c - 1, 0)
+        kind[base + 1 + HDR_ITEMS: base + CS] = 1
+        sc_np[base + 1 + HDR_ITEMS: base + CS] = c
+    kind[nitems - 1] = 2
+    sc_np[nitems - 1] = nch - 1
+    return (torch.as_tensor(sc_np, device=dev),
+            torch.as_tensor(kind > 0, device=dev))
 
 
 def _rev_cummin(x):
@@ -143,12 +186,11 @@ def _entropy_with_trees(dl, dd, lfreq, dfreq, live, fixed_codes: bool):
     (G, 286), edl, edr (G, 30), eob_lo, eob_nb (G,)), dyn_cost (G,))."""
     G = dl.shape[0]
     dev = dl.device
+    tab = _tables(dev)
     NL, ND = C.NUM_LITLEN_USED, C.NUM_DIST_USED
     _, dlr = huffman.canonical_codes(dl, C.MAX_CODE_BITS)
     _, ddr = huffman.canonical_codes(dd, C.MAX_CODE_BITS)
-    lext_bits = _t(np.concatenate([np.zeros(257, np.int64),
-                                   C.LENGTH_EXTRA]), dev)
-    dext_bits = _t(C.DIST_EXTRA, dev)
+    lext_bits, dext_bits = tab["lext_bits"], tab["dext_bits"]
 
     symidx = torch.arange(NL, dtype=_I64, device=dev)[None, :]
     hlit = torch.clamp(torch.where(dl > 0, symidx + 1, 0).max(1).values,
@@ -168,12 +210,12 @@ def _entropy_with_trees(dl, dd, lfreq, dfreq, live, fixed_codes: bool):
     pfreq.scatter_add_(1, rle_sym, rle_emit.to(_I64))
     pl = huffman.code_lengths_pm(pfreq, C.MAX_PRECODE_BITS)
     _, plr = huffman.canonical_codes(pl, C.MAX_PRECODE_BITS)
-    pl_perm = pl[:, torch.as_tensor(C.PRECODE_ORDER, device=dev).long()]
+    pl_perm = pl[:, tab["porder"]]
     pidx = torch.arange(C.NUM_PRECODE, dtype=_I64, device=dev)[None, :]
     lastp = torch.where(pl_perm > 0, pidx + 1, 0).max(1).values
     hclen = torch.clamp(lastp, min=4) - 4
 
-    pextra = _t(_P_EXTRA, dev)
+    pextra = tab["pextra"]
     pl_rs = pl.gather(1, rle_sym)
     pex_rs = pextra[rle_sym]
 
@@ -183,15 +225,13 @@ def _entropy_with_trees(dl, dd, lfreq, dfreq, live, fixed_codes: bool):
         rle_emit, pl_rs + pex_rs, 0).sum(1)
     dyn_cost = ((lfreq * dl).sum(1) + (dfreq * dd).sum(1) + extra_cost
                 + hdr_cost)
-    fll = _t(C.FIXED_LITLEN_LENGTHS[:NL], dev)
+    fll = tab["fll"]
     stat_cost = (lfreq * fll).sum(1) + (dfreq * 5).sum(1) + extra_cost
     # DEFLT_FIXEDCODES analog (deflator.h:74-76): force the static trees
     use_dyn = (dyn_cost < stat_cost) & (not fixed_codes)
     ud = use_dyn[:, None]
 
-    flr = _t(C.FIXED_LITLEN_CODES_REV[:NL], dev)
-    fdr = _t(C.FIXED_DIST_CODES_REV[:ND], dev)
-    fdl = _t(C.FIXED_DIST_LENGTHS[:ND], dev)
+    flr, fdr, fdl = tab["flr"], tab["fdr"], tab["fdl"]
     el = torch.where(ud, dl, fll)
     er = torch.where(ud, dlr, flr)
     edl = torch.where(ud, dd, fdl)
@@ -267,7 +307,7 @@ def _split_dp(Pl, Pd, nch: int, c0=_SPLIT_HDR_C0, c1=_SPLIT_HDR_C1):
 
     INF = 3e18
     best = torch.full((B, nch + 1), INF, dtype=torch.float32, device=dev)
-    best[:, 0] = 0.0
+    best[:, 0].fill_(0.0)
     arg = torch.zeros((B, nch + 1), dtype=_I64, device=dev)
     iidx = torch.arange(nch + 1, dtype=_I64, device=dev)[None, :]
     for j in range(1, nch + 1):
@@ -284,7 +324,7 @@ def _split_dp(Pl, Pd, nch: int, c0=_SPLIT_HDR_C0, c1=_SPLIT_HDR_C1):
         idx = torch.clamp(a, 0, nch - 1)[:, None]
         start.scatter_(1, idx, start.gather(1, idx) | hop[:, None])
         j = torch.where(hop, a, 0)
-    start[:, 0] = True
+    start[:, 0].fill_(True)
     return start
 
 
@@ -298,8 +338,10 @@ def encode_batch(data: torch.Tensor, start_block: int, total_len: int,
 
     data: (HALO + N_padded + PAD,) u8 on the encode device: input with a
       HALO-byte history prefix (zeros or preset dictionary) and PAD zeros.
-    start_block, total_len, dict_len, final_block: ints, as in the
-      reference (final_block gets BFINAL).
+    start_block, total_len, dict_len, final_block: ints, or 0-d int64
+      tensors on data's device, as the reference's traced scalars
+      (final_block gets BFINAL); the captured program passes tensors, so
+      that no batch's values are baked into it.
     stage: when set, return that stage's intermediate values ("match",
       "walk", "freqs", "split", "entropy", "codes", "items", "stored",
       "pack", "offsets"), as the reference does.
@@ -396,7 +438,7 @@ def encode_batch(data: torch.Tensor, start_block: int, total_len: int,
         start_f = _split_dp(Pl, Pd, nch, cfg.split_c0, cfg.split_c1)
     else:
         start_f = torch.zeros((B, nch), dtype=torch.bool, device=dev)
-        start_f[:, 0] = True
+        start_f[:, 0].fill_(True)
     if stage == "split":
         return start_f
 
@@ -585,19 +627,8 @@ def encode_batch(data: torch.Tensor, start_block: int, total_len: int,
     # The stream is cut on a 32-bit word grid anchored at each group's first
     # symbol bit (& ~31); for every window, the bit offset of the first
     # symbol starting in it is the decode lane's entry point
-    kind = np.zeros(nitems, np.int64)             # 0 hdr, 1 token, 2 eob
-    sc_np = np.zeros(nitems, np.int64)            # owning chunk per item
-    for c in range(nch):
-        base = c * CS
-        kind[base] = 2
-        sc_np[base] = max(c - 1, 0)
-        kind[base + 1 + HDR_ITEMS: base + CS] = 1
-        sc_np[base + 1 + HDR_ITEMS: base + CS] = c
-    kind[nitems - 1] = 2
-    sc_np[nitems - 1] = nch - 1
-    sc = torch.as_tensor(sc_np, device=dev)
-
-    sym_mask = (nbv > 0) & torch.as_tensor(kind > 0, device=dev)[None, :]
+    sc, is_sym = _item_layout(nch, CS, dev)
+    sym_mask = (nbv > 0) & is_sym[None, :]
     gso = offs2.gather(1, gs * CS + 1 + HDR_ITEMS)     # group sym-start
     gsc = gs[:, sc]                               # (B, nitems) owning group
     org_it = gso[:, sc] & ~31
@@ -679,6 +710,29 @@ def batch_handle(res):
     return words, meta, wanch
 
 
+def _encode_handle(data, scalars, bl: int, batch: int, level: int,
+                   num_words: int, fixed_codes: bool):
+    """batch_handle(encode_batch(...)) with the per-batch scalars
+    (start_block, total_len, dict_len, final_block) read from `scalars`, a
+    (4,) int64 tensor on data's device: the function that runs as one
+    captured program per shape."""
+    return batch_handle(encode_batch(data, *scalars.unbind(), bl, batch,
+                                     level, num_words, fixed_codes))
+
+
+def launch_batch(data, start_block: int, total_len: int, dict_len: int,
+                 final_block: int, bl: int, batch: int, level: int,
+                 num_words: int, fixed_codes: bool = False):
+    """Launch one batch's encode_batch on data's device and return its
+    batch_handle; nothing is read back. On a card the encode is the
+    replayed program of its shape (codec/program.py), and the four scalars
+    travel as one small upload that does not synchronise."""
+    sc = _device.upload(np.array([start_block, total_len, dict_len,
+                                  final_block], np.int64), data.device)
+    return program.run(_encode_handle, (data, sc),
+                       (bl, batch, level, num_words, fixed_codes))
+
+
 def read_batch(handle, batch: int, nch: int):
     """Read one batch_handle back: (total bits, the word bytes covering
     them, stored flags, start flags, header offsets, window counts, window
@@ -712,7 +766,8 @@ class RawDeflater:
     byte-aligned sync-flush empty stored blocks (zlib Z_SYNC_FLUSH, cf.
     deflator.h:135-141) padded to 4 bytes. The index has the JAX package's
     keys (block_bits, block_bytes, sync_points, n, win), so either
-    package's decoder reads it.
+    package's decoder reads it. On a card each batch is the replayed
+    program of its shape (launch_batch, codec/program.py).
     """
 
     def __init__(self, level: int = 6, block_size: int = 1 << 16,
@@ -741,26 +796,28 @@ class RawDeflater:
         final=False omits BFINAL and ends with a byte-aligned sync-flush
         seam instead (Z_SYNC_FLUSH / DEFLT_FLUSH), so further segments can
         be concatenated."""
+        return self.finish(self.launch(data, dictionary, final))
+
+    def launch(self, data: bytes, dictionary: bytes | None = None,
+               final: bool = True):
+        """Phase 1 of compress: launch every batch's encode; nothing is
+        read back, and on a card nothing waits for the device. Returns
+        what finish() assembles."""
         bl, batch = self.bl, self.batch
         dev = self.device
         self.last_calls = []
         n = len(data)
-        empty = {"block_bits": [], "block_bytes": [], "sync_points": [],
-                 "n": 0, "win": []}
         if n == 0:
-            # empty stream: one static block with just EOB = 0x03 0x00
-            return (b"\x03\x00" if final else b""), empty
+            return n, final, []
         dict_bytes = (dictionary or b"")[-C.WINDOW_SIZE:]
         nblocks = (n + bl - 1) // bl
         arr = np.frombuffer(data, np.uint8)
         chunk = levels_mod.get_level(self.level).chunk
-        nch = _nch(bl, chunk)
         seg = batch * bl
         nw = words_bound(bl, batch, chunk)
         final_idx = nblocks - 1 if final else -1
         statics = (bl, batch, self.level, nw, self.fixed_codes)
 
-        # Phase 1: run every batch; nothing is read back yet
         handles = []
         for b0 in range(0, nblocks, batch):
             s = b0 * bl
@@ -774,16 +831,28 @@ class RawDeflater:
                     if h > s else data[s - h:s]
                 buf[HALO - h:HALO] = np.frombuffer(hist, np.uint8)
             buf[HALO:HALO + seg_n] = arr[s:s + seg_n]
-            dbuf = torch.from_numpy(buf).to(dev)
+            dbuf = _device.upload(buf, dev)
             args = (dbuf, 0, seg_n, h, final_idx - b0)
             if self.capture_calls:
                 self.last_calls.append(args)
                 self.call_statics = statics
-            handles.append((b0, batch_handle(encode_batch(*args,
-                                                          *statics))))
+            handles.append((b0, launch_batch(*args, *statics)))
+        return n, final, handles
 
-        # Phase 2: read back (the small meta first, then only the produced
-        # words and the used prefix of each block's anchor row) and assemble
+    def finish(self, launched):
+        """Phase 2 of compress: read back what launch() started (the small
+        meta first, then only the produced words and the used prefix of
+        each block's anchor row) and assemble the stream and its index."""
+        n, final, handles = launched
+        if n == 0:
+            # empty stream: one static block with just EOB = 0x03 0x00
+            return (b"\x03\x00" if final else b""), {
+                "block_bits": [], "block_bytes": [], "sync_points": [],
+                "n": 0, "win": []}
+        bl, batch = self.bl, self.batch
+        chunk = levels_mod.get_level(self.level).chunk
+        nch = _nch(bl, chunk)
+        nblocks = (n + bl - 1) // bl
         out = bytearray()
         index_bits, index_bytes, sync_points, anchors_out = [], [], [], []
         for b0, handle in handles:

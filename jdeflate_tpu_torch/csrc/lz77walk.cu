@@ -32,12 +32,14 @@
 // clamped and every value outside [0, block_len) absorbs; at most
 // WALK_CAP - 1 entries are listed.
 
+#include <atomic>
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kThreads = 1024;
+constexpr int kMaxDevices = 64;        // device ordinals cached
 constexpr int kBatch = 16;             // table entries per thread per pass
 
 __global__ void __launch_bounds__(kThreads)
@@ -122,17 +124,29 @@ match_walk_kernel(const int* __restrict__ cnext, const int* __restrict__ lenp,
 
 }  // namespace
 
-// jumps: int32, at least nblocks * 2 * (bl + 1) entries.
+// jumps: int32, at least nblocks * 2 * (bl + 1) entries. The
+// shared-memory attribute is a property of the kernel on one device: the
+// first launch on each device (or the first with a larger cap) sets it, so
+// the launches that a captured program replays make no attribute call.
 extern "C" int jd_match_walk(const void* cnext, const void* lenp,
                              const void* block_len, void* plist,
                              void* jumps, int nblocks, int n, int bl,
                              int cap, void* stream) {
+  static std::atomic<int> smem_set[kMaxDevices];
   if (nblocks <= 0) return 0;
   if (bl <= 0 || n <= bl || cap < 2) return (int)cudaErrorInvalidValue;
   const int smem = (cap - 1) * (int)sizeof(int);
-  cudaError_t e = cudaFuncSetAttribute(
-      match_walk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return (int)e;
+  if (dev < 0 || dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (smem_set[dev].load(std::memory_order_acquire) < smem) {
+    e = cudaFuncSetAttribute(match_walk_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+    if (e != cudaSuccess) return (int)e;
+    smem_set[dev].store(smem, std::memory_order_release);
+  }
   match_walk_kernel<<<nblocks, kThreads, smem, (cudaStream_t)stream>>>(
       (const int*)cnext, (const int*)lenp, (const int*)block_len,
       (int*)plist, (int*)jumps, n, bl, cap);

@@ -20,6 +20,7 @@ import functools
 import numpy as np
 import torch
 
+from ..codec import program
 from ..utils import device as _device
 
 ADLER_BASE = 65521
@@ -132,79 +133,138 @@ def _bitlinear_consts(c: int) -> np.ndarray:
     return kw
 
 
-def _as_bytes_tensor(data, device) -> torch.Tensor:
+@functools.lru_cache(maxsize=None)
+def _pow2_matrix_stack() -> np.ndarray:
+    """(32, 32) int64: row k = columns of the matrix advancing a raw CRC
+    state over 2^k zero bytes."""
+    return np.stack([np.array(_shift_matrix_pow2(k), dtype=np.int64)
+                     for k in range(32)])
+
+
+# The tables live on each device once: a captured program cannot upload.
+# Every user only reads them.
+@functools.lru_cache(maxsize=None)
+def _crc_tables_on(dev: torch.device):
+    """(bit-linear chunk constants (c//4, 32), shift-matrix stack (32, 32))
+    on `dev`, int64 holding u32 values."""
+    return (torch.as_tensor(_bitlinear_consts(_CRC_CHUNK).astype(np.int64),
+                            device=dev),
+            torch.as_tensor(_pow2_matrix_stack(), device=dev))
+
+
+def _pad_bucket(n: int, chunk: int) -> int:
+    """Padded size of an n-byte input: a chunk multiple, doubling up to
+    1 MiB and in 1 MiB steps beyond, so that few shapes (captured programs)
+    serve every length (the JAX package's _pad_bucket)."""
+    n = max(n, 1)
+    b = chunk
+    while b < n:
+        b = b * 2 if b < (1 << 20) else b + (1 << 20)
+    return b
+
+
+def _padded(data, n: int, size: int, front: bool, device) -> torch.Tensor:
+    """The n bytes of `data` (bytes-like, or a uint8 tensor whose device
+    is used) zero-padded to `size` bytes, at the front or the back, on the
+    device."""
     if isinstance(data, torch.Tensor):
-        return data.reshape(-1).to(torch.uint8)
-    arr = np.frombuffer(memoryview(data), dtype=np.uint8)
-    return torch.from_numpy(arr.copy()).to(_device.resolve(device))
+        t = data.reshape(-1).to(torch.uint8)
+        if size == n:           # a copy: a view may start off a word
+            return t.clone()
+        z = torch.zeros(size - n, dtype=torch.uint8, device=t.device)
+        return torch.cat([z, t] if front else [t, z])
+    buf = np.zeros(size, np.uint8)
+    src = np.frombuffer(memoryview(data), dtype=np.uint8)
+    if front:
+        buf[size - n:] = src
+    else:
+        buf[:n] = src
+    return _device.upload(buf, _device.resolve(device))
 
 
-def _xor_reduce_cols(v: torch.Tensor) -> torch.Tensor:
-    """XOR over dim 1 of (m, 2^k) int64 by halving."""
-    while v.shape[1] > 1:
-        v = v[:, 0::2] ^ v[:, 1::2]
-    return v[:, 0]
+def _xor_reduce_last(v: torch.Tensor) -> torch.Tensor:
+    """XOR over the last dimension (a power of two) by halving."""
+    while v.shape[-1] > 1:
+        v = v[..., 0::2] ^ v[..., 1::2]
+    return v[..., 0]
 
 
 def _apply_matrix(m: torch.Tensor, crc: torch.Tensor) -> torch.Tensor:
-    """GF(2) 32x32 matrix (32 int64 columns) times a vector of states."""
-    acc = torch.zeros_like(crc)
+    """GF(2) 32x32 matrix (32 int64 columns) times a tensor of states."""
+    bits = (crc[..., None] >> torch.arange(32, device=crc.device)) & 1
+    return _xor_reduce_last(torch.where(bits > 0, m, 0))
+
+
+def _crc32_program(data: torch.Tensor, scalars: torch.Tensor):
+    """crc32 of the last n bytes of `data`, a uint8 tensor of whole chunks
+    front-padded with zeros (invisible to the raw CRC, whose state starts
+    at zero); scalars = (init, n), int64 on data's device. Returns a 0-d
+    int64 tensor. The port of the JAX _crc32_device: no host read, so it
+    runs as one captured program per padded size."""
+    c = _CRC_CHUNK
+    K, stack = _crc_tables_on(data.device)
+    init, n = scalars.unbind()
+    words = data.view(torch.int32).to(torch.int64).reshape(-1, c // 4) & _M32
+    v = torch.zeros_like(words)
     for j in range(32):
-        acc = acc ^ torch.where(((crc >> j) & 1) > 0, m[j],
-                                torch.zeros_like(crc))
-    return acc
+        v = v ^ torch.where(((words >> j) & 1) > 0, K[:, j], 0)
+    raw = _xor_reduce_last(v)
+    # log-depth tree: raw(A||B) = M_len(B) raw(A) ^ raw(B)
+    level = c.bit_length() - 1      # chunk bytes = 2^level
+    while raw.shape[0] > 1:
+        if raw.shape[0] % 2:
+            raw = torch.cat([raw.new_zeros(1), raw])     # front zero chunk
+        raw = _apply_matrix(stack[level], raw[0::2]) ^ raw[1::2]
+        level += 1
+    # std crc32(M, init) = ~( raw(M) ^ M_{8n}(~init) ), the advance by n
+    # taken bit by bit of n (_advance_by_n)
+    adv = (~init) & _M32
+    for k in range(32):
+        adv = torch.where(((n >> k) & 1) > 0, _apply_matrix(stack[k], adv),
+                          adv)
+    return ((~(raw[0] ^ adv)) & _M32,)
+
+
+def _adler32_program(data: torch.Tensor, scalars: torch.Tensor):
+    """adler32 of the first n bytes of `data`, a uint8 tensor of whole
+    chunks back-padded with zeros (which add nothing to either sum);
+    scalars = (init, n), int64 on data's device. Returns a 0-d int64
+    tensor. The port of the JAX _adler32_device; the sums fit in int64, so
+    they fold mod 65521 once."""
+    c = _ADLER_CHUNK
+    init, n = scalars.unbind()
+    d = data.to(torch.int64).reshape(-1, c)
+    s_c = d.sum(1)
+    w_c = (d * torch.arange(c, device=d.device)).sum(1)
+    o_c = torch.arange(d.shape[0], device=d.device) * c
+    s1_0, s2_0 = init & 0xFFFF, (init >> 16) & 0xFFFF
+    s1 = (s1_0 + s_c.sum()) % ADLER_BASE
+    # s2 = s2_0 + n*s1_0 + sum over bytes of (n - pos) * b, per chunk
+    # (n - o_c) * S_c - W_c, folded mod BASE before the sum
+    term = ((n - o_c) * s_c - w_c) % ADLER_BASE
+    s2 = (s2_0 + n * s1_0 + term.sum()) % ADLER_BASE
+    return ((s2 << 16) | s1,)
+
+
+def _checksum(fn, data, init: int, chunk: int, front: bool, device) -> int:
+    """fn over data padded to its bucket, as a captured program on a card;
+    one readback, the 32-bit result (init for empty data)."""
+    n = data.numel() if isinstance(data, torch.Tensor) else len(data)
+    if n == 0:
+        return init & _M32
+    buf = _padded(data, n, _pad_bucket(n, chunk), front, device)
+    sc = _device.upload(np.array([init & _M32, n], np.int64), buf.device)
+    return int(program.run(fn, (buf, sc))[0])
 
 
 def crc32(data, init: int = 0, device="cuda") -> int:
     """crc32 of a byte buffer (zlib convention), computed on `device` (or on
     the device of a uint8 tensor)."""
-    t = _as_bytes_tensor(data, device)
-    n = t.numel()
-    if n == 0:
-        return init & _M32
-    c = _CRC_CHUNK
-    pad = (-n) % c
-    if pad:     # front zeros are invisible to the raw CRC (zero state)
-        t = torch.cat([torch.zeros(pad, dtype=torch.uint8, device=t.device), t])
-    words = t.view(torch.int32).to(torch.int64).reshape(-1, c // 4) & _M32
-    K = torch.as_tensor(_bitlinear_consts(c).astype(np.int64),
-                        device=t.device)                 # (c//4, 32)
-    v = torch.zeros_like(words)
-    for j in range(32):
-        v = v ^ torch.where(((words >> j) & 1) > 0, K[:, j], 0)
-    raw = _xor_reduce_cols(v)
-    level = c.bit_length() - 1      # chunk bytes = 2^level
-    while raw.shape[0] > 1:
-        if raw.shape[0] % 2:
-            raw = torch.cat([raw.new_zeros(1), raw])     # front zero chunk
-        m = torch.as_tensor(_shift_matrix_pow2(level), dtype=torch.int64,
-                            device=t.device)
-        raw = _apply_matrix(m, raw[0::2]) ^ raw[1::2]
-        level += 1
-    # std crc32(M, init) = ~( raw(M) ^ M_{8n}(~init) )
-    adv = _advance_host((~init) & _M32, n)
-    return (~(int(raw[0]) ^ adv)) & _M32
+    return _checksum(_crc32_program, data, init, _CRC_CHUNK, True, device)
 
 
 def adler32(data, init: int = 1, device="cuda") -> int:
     """adler32 of a byte buffer, computed on `device` (or on the device of a
     uint8 tensor)."""
-    t = _as_bytes_tensor(data, device)
-    n = t.numel()
-    if n == 0:
-        return init & _M32
-    c = _ADLER_CHUNK
-    pad = (-n) % c
-    if pad:     # trailing zeros add nothing to either sum
-        t = torch.cat([t, torch.zeros(pad, dtype=torch.uint8, device=t.device)])
-    d = t.to(torch.int64).reshape(-1, c)
-    s_c = d.sum(1)
-    w_c = (d * torch.arange(c, device=t.device)).sum(1)
-    o_c = torch.arange(d.shape[0], device=t.device) * c
-    s1_0, s2_0 = init & 0xFFFF, (init >> 16) & 0xFFFF
-    s1 = (s1_0 + int(s_c.sum())) % ADLER_BASE
-    # s2 = s2_0 + n*s1_0 + sum over bytes of (n - pos) * b, per chunk
-    # (n - o_c) * S_c - W_c, folded mod BASE before the sum
-    term = ((n - o_c) * s_c - w_c) % ADLER_BASE
-    s2 = (s2_0 + n * s1_0 + int(term.sum())) % ADLER_BASE
-    return (s2 << 16) | s1
+    return _checksum(_adler32_program, data, init, _ADLER_CHUNK, False,
+                     device)

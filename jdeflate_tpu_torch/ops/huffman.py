@@ -89,15 +89,24 @@ def code_lengths(freqs: torch.Tensor, max_bits: int) -> torch.Tensor:
     clamped = torch.clamp(leaf_depth, max=max_bits)
     bl_count = torch.zeros((G, max_bits + 1), dtype=torch.int64, device=dev)
     bl_count.scatter_add_(1, clamped, is_leaf.to(torch.int64))
-    bl_count[:, 0] = 0
+    bl_count[:, 0].fill_(0)
     bits_idx = torch.arange(max_bits + 1, dtype=torch.int64, device=dev)
     excess = torch.where(
         m >= 2,
         (bl_count << torch.clamp(max_bits - bits_idx, min=0)).sum(1)
         - (1 << max_bits), torch.zeros_like(m))
     # Kraft excess repair: each step moves one leaf one level down, pairing
-    # it with an overflowed leaf (one host read per step)
-    while bool((excess > 0).any()):
+    # it with an overflowed leaf, and takes one unit off the excess. The
+    # reference loops while the excess is positive; here a fixed number of
+    # masked steps runs, so no step reads the device back. The bound: the
+    # excess is the sum, over the t internal nodes at depth max_bits, of
+    # (leaves below - 1), that is m - s - t with s the leaves at depths
+    # 1..max_bits; in a full binary tree with a node at depth max_bits,
+    # s + t >= max_bits + 1 (a_1 = 2 and a_d >= 2 nodes at each depth d,
+    # s + t = a_1 + sum over d = 2..max_bits of a_d / 2). So the excess is
+    # at most m - max_bits - 1 <= n - max_bits - 1, which the caterpillar
+    # tree of Fibonacci frequencies reaches.
+    for _ in range(max(n - max_bits - 1, 0)):
         act = (excess > 0).to(torch.int64)
         cand = torch.where((bl_count > 0) & (bits_idx < max_bits)
                            & (bits_idx > 0), bits_idx, torch.zeros_like(
@@ -185,7 +194,7 @@ def canonical_codes(lengths: torch.Tensor, max_bits: int):
     dev = l.device
     bl_count = torch.zeros((G, max_bits + 1), dtype=torch.int64, device=dev)
     bl_count.scatter_add_(1, l, (l > 0).to(torch.int64))
-    bl_count[:, 0] = 0
+    bl_count[:, 0].fill_(0)
 
     first = torch.zeros((G, max_bits + 2), dtype=torch.int64, device=dev)
     code = torch.zeros(G, dtype=torch.int64, device=dev)

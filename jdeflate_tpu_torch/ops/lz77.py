@@ -207,8 +207,11 @@ def find_matches_batch(ext: torch.Tensor, block_len: torch.Tensor,
     pl2 = plen
     stuck0 = (pl2 > 0) & (pl2 % 16 == 0) & (pl2 < 258)
     dws = torch.where(stuck0, pdist, 0).reshape(-1)[::4]
-    hist = torch.bincount(dws, minlength=C.WINDOW_SIZE + 1)
-    hist[0] = 0
+    # distances are at most WINDOW_SIZE: a histogram of fixed length (a
+    # bincount would read its length back from the device)
+    hist = torch.zeros(C.WINDOW_SIZE + 1, dtype=torch.int64, device=dev)
+    hist.scatter_add_(0, dws, torch.ones_like(dws))
+    hist[0].fill_(0)
     # lax.top_k breaks ties by lower index: a stable descending sort does too
     topd = torch.sort(hist, descending=True, stable=True).indices[:T]
     col_row = torch.arange(row, dtype=torch.int64, device=dev)[None, :]
@@ -226,8 +229,10 @@ def find_matches_batch(ext: torch.Tensor, block_len: torch.Tensor,
         pl2 = torch.where(sel, runlen, pl2)
     plen = pl2
 
-    # Stage 2: compacted gather-compare rounds for the residue, ending early
-    # when no boundary survivors remain (one host read per round)
+    # Stage 2: compacted gather-compare rounds for the residue. The
+    # reference's loop stops when no boundary survivor remains, at most
+    # ext_rounds rounds; here every round runs, masked: a round after the
+    # last active one changes nothing, and no round reads the device back
     wflat = _words_le_flat(ext.reshape(-1))
     N = B * nh
     M = max(N // ext_mdiv, 1024)
@@ -244,8 +249,6 @@ def find_matches_batch(ext: torch.Tensor, block_len: torch.Tensor,
     lx = torch.where(valid, pl[si], 0)
     for _ in range(ext_rounds):
         active = (lx > 0) & (lx % 16 == 0) & (lx < 258)
-        if not bool(active.any()):
-            break
         add = _cmp16(wflat, qi_s + lx, cand_s + lx)
         lx = torch.where(active, lx + add, lx)
     plx = torch.cat([pl, pl.new_zeros(1)])

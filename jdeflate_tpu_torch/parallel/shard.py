@@ -38,7 +38,6 @@ from __future__ import annotations
 import zlib
 
 import numpy as np
-import torch
 import torch.distributed as dist
 
 from ..codec import deflate as De
@@ -48,6 +47,7 @@ from ..formats import headers as H
 from ..ops import checksum as cs
 from ..stream import host_inflate as hi
 from ..stream import native, zstrm
+from ..utils import device as _device
 from ..utils import errors
 from .mesh import ProcessMesh, make_mesh, spanning
 
@@ -63,11 +63,12 @@ def encode_sharded(data_sh, shard_lens, dict_lens, final_blocks, bl: int,
       (None for an empty shard); shard_lens, dict_lens, final_blocks: per
       rank ints (final_blocks: the index of the BFINAL block, or -1).
     Returns per rank the batch_handle of its encode_batch result on its
-    device (None for an empty shard, which launches nothing). Nothing is
-    read back.
+    device (None for an empty shard, which launches nothing): the replayed
+    program of its shape on a card, one per device, which ranks on one
+    card share. Nothing is read back.
     """
-    return [De.batch_handle(De.encode_batch(d, 0, n, dl, fin, bl, bpd, level,
-                                            num_words)) if n else None
+    return [De.launch_batch(d, 0, n, dl, fin, bl, bpd, level, num_words)
+            if n else None
             for d, n, dl, fin in zip(data_sh, shard_lens, dict_lens,
                                      final_blocks)]
 
@@ -231,7 +232,7 @@ class ShardedDeflater:
                     dls[j] = h
                 if self.mode == "members" or s + ln >= n:
                     fins[j] = (ln - 1) // bl
-                data_sh[j] = torch.from_numpy(buf).to(self.mesh[j])
+                data_sh[j] = _device.upload(buf, self.mesh[j])
             handles = encode_sharded(data_sh, lens, dls, fins, bl, bpd,
                                      self.level, nw)
             crcs = checksums_sharded(data_sh, lens)

@@ -6,6 +6,7 @@ plain PyTorch versions of the kernels.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from . import errors
@@ -21,3 +22,13 @@ def resolve(device) -> torch.device:
     elif dev.type != "cpu":
         raise errors.IncorrectUseError(f"unsupported device {device!r}")
     return dev
+
+
+def upload(arr: np.ndarray, dev: torch.device) -> torch.Tensor:
+    """A host array as a tensor on `dev` (on the CPU, sharing its memory).
+    To a card it goes through pinned memory without a synchronise, so a
+    loop that launches work on the card keeps launching."""
+    t = torch.from_numpy(arr)
+    if dev.type != "cuda":
+        return t
+    return t.pin_memory().to(dev, non_blocking=True)

@@ -11,17 +11,25 @@ global rank count (make_mesh(W*L, device="cpu")), computed here, and on
 2x2 also the JAX ShardedDeflater's on four devices of the 8-device CPU mesh
 (tests/conftest.py). Input that differs between the processes, and an
 error in one process, must raise in every process. Tolerance: exact
-equality. Every join has a timeout and kills the workers on expiry.
+equality. Every join has a timeout and stops the workers on expiry
+(SIGTERM first: each worker then dumps its threads' stacks into its log);
+a late or failed spawn reports every worker's return code, seconds since
+spawn and log tail.
 
 Worker processes do not run tests/conftest.py, so each is handed the
 parent's capped probe depths (ROADMAP C4) before it encodes.
 """
+import time
+
+_T0 = time.monotonic()   # a worker's log times count from here, imports in
+
 import datetime
+import faulthandler
 import os
 import pickle
+import signal
 import subprocess
 import sys
-import time
 
 import pytest
 import torch
@@ -38,8 +46,12 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # 2 KiB splitter chunks show the member index of ROADMAP C11
 BL, BPD, LEVEL = 2048, 2, 6
 L9 = dict(level=9, block_size=4096, blocks_per_device=2)
-JOIN_S = 120          # one spawn, every case included
-PG_TIMEOUT_S = 60     # a collective that waits longer raises
+JOIN_S = 240          # one spawn, every case included
+# The group's rendezvous and collectives wait as long as the join: a worker
+# that is only late (a starved import of torch, a slow first build of the
+# native library) then delays its peers instead of timing them out, which
+# broke the group and turned one late process into a failed layout.
+PG_TIMEOUT_S = JOIN_S
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -118,14 +130,22 @@ def cases(corpus):
 def _worker(job_path: str, rank: int) -> None:
     """One process of a spawn: join the gloo group, run every case of the
     job in sequence, write {case: result} to out<rank>.pkl."""
+    # a join that times out sends SIGTERM first: the log then shows where
+    # every thread of this process was
+    faulthandler.register(signal.SIGTERM, all_threads=True)
+
+    def note(what):
+        print(f"[{time.monotonic() - _T0:.1f} s] {what}", flush=True)
     with open(job_path, "rb") as f:
         job = pickle.load(f)
     torch.set_num_threads(1)
+    note("job read")
     tlevels._PROBE_CAP.update(job["probe_cap"])
     world, local = job["world"], job["local"]
     dist.init_process_group(
         "gloo", init_method="file://" + job["init"], world_size=world,
         rank=rank, timeout=datetime.timedelta(seconds=PG_TIMEOUT_S))
+    note("group joined")
     group = dist.group.WORLD
     res = {}
     try:
@@ -136,6 +156,7 @@ def _worker(job_path: str, rank: int) -> None:
         res["mesh"] = (tuple(str(d) for d in mesh.local), mesh.first,
                        mesh.size)
         for name, (data, kw, hook) in job["cases"].items():
+            note(f"case {name}")
             if name == "mismatch":
                 data = data + bytes([rank])
             enc = tshard.ShardedDeflater(mesh=mesh, **kw)
@@ -154,6 +175,7 @@ def _worker(job_path: str, rank: int) -> None:
     with open(os.path.join(os.path.dirname(job_path), f"out{rank}.pkl"),
               "wb") as f:
         pickle.dump(res, f)
+    note("done")
 
 
 def _group_mesh_rules(group) -> dict:
@@ -182,38 +204,67 @@ def _spawn(tmp, world: int, local: int, job_cases: dict, device="cpu"):
            "cases": job_cases}
     with open(tmp / "job.pkl", "wb") as f:
         pickle.dump(job, f)
+    return _start([[sys.executable, os.path.abspath(__file__),
+                    str(tmp / "job.pkl"), str(r)] for r in range(world)],
+                  tmp)
+
+
+def _start(cmds, tmp) -> list:
+    """One process per command, each logging to tmp/log<r>.txt."""
     env = {**os.environ, "PYTHONPATH": os.pathsep.join(
         filter(None, [REPO, os.environ.get("PYTHONPATH")]))}
     procs = []
-    for r in range(world):
+    for r, cmd in enumerate(cmds):
         log = open(tmp / f"log{r}.txt", "wb")
-        procs.append(subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), str(tmp / "job.pkl"),
-             str(r)], stdout=log, stderr=subprocess.STDOUT, cwd=REPO,
-            env=env))
+        procs.append(subprocess.Popen(cmd, stdout=log,
+                                      stderr=subprocess.STDOUT, cwd=REPO,
+                                      env=env))
+        procs[-1].spawned = time.monotonic()
         log.close()
     return procs
 
 
+def _report(procs, tmp, what: str) -> str:
+    """What each worker did: its return code, its seconds since spawn and
+    the tail of its log."""
+    lines = [what]
+    for r, p in enumerate(procs):
+        log = (tmp / f"log{r}.txt").read_text(errors="replace")
+        lines.append(f"--- worker {r}: return code {p.returncode}, "
+                     f"{time.monotonic() - p.spawned:.1f} s since spawn; "
+                     f"log tail:\n{log[-3000:]}")
+    return "\n".join(lines)
+
+
 def _join(procs, tmp, timeout: float = JOIN_S) -> list:
-    """Wait for every worker (killing all of them once `timeout` seconds
+    """Wait for every worker (stopping all of them once `timeout` seconds
     have passed) and return each one's results; fail on a timeout or a
-    worker that failed."""
+    worker that failed, with every worker's return code, age and log."""
     deadline = time.monotonic() + timeout
+    late = False
     try:
         for p in procs:
             p.wait(timeout=max(deadline - time.monotonic(), 0.1))
     except subprocess.TimeoutExpired:
-        pytest.fail(f"workers did not finish in {timeout} s")
+        late = True
     finally:
         for p in procs:
             if p.poll() is None:
+                # SIGTERM dumps the worker's stacks into its log first
+                p.terminate()
+                try:
+                    p.wait(timeout=5)
+                except subprocess.TimeoutExpired:
+                    pass
                 p.kill()
                 p.wait()
+    if late:
+        pytest.fail(_report(procs, tmp,
+                            f"workers did not finish in {timeout} s"))
+    if any(p.returncode != 0 for p in procs):
+        pytest.fail(_report(procs, tmp, "a worker failed"))
     outs = []
-    for r, p in enumerate(procs):
-        log = (tmp / f"log{r}.txt").read_text(errors="replace")
-        assert p.returncode == 0, f"worker {r} failed:\n{log[-4000:]}"
+    for r in range(len(procs)):
         with open(tmp / f"out{r}.pkl", "rb") as f:
             outs.append(pickle.load(f))
     return outs
@@ -279,6 +330,41 @@ def spawns(cases, tmp_path_factory):
 def spawned(request, spawns):
     """(layout, the workers' results, one-process results)."""
     return (request.param, *spawns(*request.param))
+
+
+def test_join_reports_every_worker(tmp_path):
+    """A join that times out names each worker's return code, age and log,
+    with the stacks a late worker dumps on SIGTERM; a join whose worker
+    failed names its return code and log."""
+    late = ("import faulthandler, signal, time; faulthandler.register("
+            "signal.SIGTERM, all_threads=True); print('worker up', "
+            "flush=True); time.sleep(300)")
+    procs = _start([[sys.executable, "-c", late],
+                    [sys.executable, "-c", "print('quick worker')"]],
+                   tmp_path)
+    deadline = time.monotonic() + 120
+    while "worker up" not in (tmp_path / "log0.txt").read_text() \
+            and time.monotonic() < deadline:
+        time.sleep(0.1)
+    procs[1].wait(timeout=120)
+    with pytest.raises(pytest.fail.Exception) as e:
+        _join(procs, tmp_path, timeout=0.5)
+    msg = str(e.value)
+    assert "did not finish in 0.5 s" in msg
+    assert "worker 0: return code" in msg and "since spawn" in msg
+    assert "worker up" in msg
+    assert 'File "<string>"' in msg            # the late worker's stack
+    assert "worker 1: return code 0" in msg and "quick worker" in msg
+    assert all(p.poll() is not None for p in procs)
+
+    procs = _start([[sys.executable, "-c",
+                     "import sys; print('failing worker'); sys.exit(3)"]],
+                   tmp_path)
+    with pytest.raises(pytest.fail.Exception) as e:
+        _join(procs, tmp_path, timeout=120)
+    assert "a worker failed" in str(e.value)
+    assert "worker 0: return code 3" in str(e.value)
+    assert "failing worker" in str(e.value)
 
 
 @pytest.mark.parametrize("name", NAMES)
