@@ -58,9 +58,18 @@ and under program.eager(); streams, indexes and window anchors must be
 byte-equal (sha256) and the match walk's launches equal, and
 RawDeflater.launch (Phase 1) must make no synchronising call under
 torch.cuda.set_sync_debug_mode("error"); walls, graphs captured, capture
-times and the checksums' time per call are printed. Each path's kernel
-launches are counted from
-zero around it (path_launches in the kernels line). Each kernel is
+times and the checksums' time per call are printed. Decode programs
+(phase 16): every decode batch runs as a captured program on the card
+(each earlier decode did); with the cache cleared, engine 2 and v5 on the
+32 MiB zlib-6 stream and the anchored and dense decodes of its first 8 MiB
+run captured and under program.eager(): sha256 of the output, last_stats,
+the first erring batch and every kernel's launches must be equal; walls,
+programs, captures and replays are printed, then the engine-2 decode's
+host time by phase (_plan, uploads, the launch loop, the readback with
+_fill, the native re-decode). Each phase boundary prints memory_reserved
+and the program cache's bytes. Each path's kernel launches are counted from
+zero around it (path_launches in the kernels line; a replay adds the
+launches its capture recorded). Each kernel is
 held against its plain PyTorch version on the main path's inputs, the
 encoder's integer stages on the card against the same stages on the CPU,
 and everything is timed. The walk (B1) is held to its plain version on
@@ -122,7 +131,18 @@ V5_ERRS = [(0, 1)]
 
 
 def stamp(what: str) -> None:
-    print(f"[{time.perf_counter() - _T0:.1f} s] {what}", flush=True)
+    """A phase boundary: the script's clock, and once the card is in use
+    its memory_reserved and the program cache's bytes (after the phase
+    before)."""
+    mem = ""
+    torch = sys.modules.get("torch")
+    if torch is not None and torch.cuda.is_initialized():
+        from jdeflate_tpu_torch.codec import program
+        mem = (f"; memory_reserved {torch.cuda.memory_reserved()} B, "
+               f"program cache {program.stats['bytes']} B in "
+               f"{len(program._programs)} programs "
+               f"({program.stats['evictions']} evicted so far)")
+    print(f"[{time.perf_counter() - _T0:.1f} s] {what}{mem}", flush=True)
 
 
 def fail(msg: str) -> None:
@@ -1593,8 +1613,8 @@ def sharded_phase(data: bytes, card: str) -> tuple:
                                                        "win")]
         for words, metas, row, halo, npe, nb, oc, ww in mcalls:
             args = I._walk_inputs(words, metas[row], npe, nb, ww)
-            e2 = int(I._decode_from_meta(words, metas[row], halo, npe, nb,
-                                         oc, ww)[2])
+            e2 = int(I.decode_batch_windows_stacked(
+                words, metas, row, halo, npe, nb, oc, ww)[2])
             per.append((args, halo, oc, e2))
             flat.append((words, metas, row, halo, npe, nb, oc, ww))
         o0 += index["n"]
@@ -2111,6 +2131,144 @@ def program_phase(data: bytes, card: str) -> dict:
     return launches
 
 
+def decode_program_phase(data: bytes, raw: bytes, idx: dict,
+                         card: str) -> dict:
+    """Phase 16: the decode programs (codec/inflate.py's windowed, anchored
+    and dense batches as codec/program.py programs, the card's default,
+    which every earlier phase ran) against program.eager(), the program
+    cache cleared first: engine 2 and v5 (JDT_EXPAND=5) on the 32 MiB
+    zlib-6 stream, and on the zlib-6 stream of its first ANCH_MB MiB the
+    anchored decode (symbol anchors from symbol_anchors; its blocks over 64
+    KiB take the plain assembly) and the dense decode. In each branch the
+    output's sha256, last_stats, the first erring batch (where the native
+    decoder takes over) and every kernel's launches (a replay adds its own,
+    program.COUNTED) are equal between the two paths. Printed: walls and
+    spans, the programs, captures, capture seconds and replays. Then the
+    engine-2 decode's host time by phase over 3 captured runs after a warm
+    one, from
+    wrapped timers around RawInflater._plan, _upload, _launch, _finish and
+    the native re-decode inside _finish (native.inflate). Returns each
+    captured run's kernel launches, by path."""
+    import collections
+    import hashlib
+    import torch
+    from jdeflate_tpu_torch.codec import inflate as I
+    from jdeflate_tpu_torch.codec import program
+    from jdeflate_tpu_torch.ops import expand as ex
+    from jdeflate_tpu_torch.ops import expand2 as ex2
+    from jdeflate_tpu_torch.ops import expand5 as ex5
+    from jdeflate_tpu_torch.ops import walk as wk
+    from jdeflate_tpu_torch.stream import native
+
+    counted = {"walk": wk.walk_checked, "expand2": ex2.expand_tokens,
+               "expand5_seed": ex5.seed_plane,
+               "expand5_resolve": ex5.resolve, "expand1": ex.expand_matches}
+
+    def zero():
+        for f in counted.values():
+            f.launches = 0
+
+    def launches():
+        return {k: f.launches for k, f in counted.items() if f.launches}
+
+    def first_bad(stats):
+        return next((i for i, (_, _, e) in enumerate(stats) if e), None)
+
+    part = data[:ANCH_MB << 20]
+    co = zlib.compressobj(6, zlib.DEFLATED, -15)
+    raw8 = co.compress(part) + co.flush()
+    dec = I.RawInflater(device="cuda", **BATCH)
+    idx8 = dec.build_index(raw8)
+    plain8 = {k: v for k, v in idx8.items() if k != "win"}
+    branches = (
+        ("engine2", "engine 2, 32 MiB", raw, idx, data, "2"),
+        ("v5", "v5, 32 MiB", raw, idx, data, "5"),
+        ("anchored", f"anchored, {ANCH_MB} MiB", raw8,
+         {**plain8, "anchors": symbol_anchors(raw8, idx8, "cuda")}, part,
+         "2"),
+        ("dense", f"dense, {ANCH_MB} MiB", raw8, plain8, part, "2"))
+    program.clear()
+    found = {}
+    for key, name, r, index, want, engine in branches:
+        def fn():
+            return dec.decompress(r, index=index)
+        os.environ["JDT_EXPAND"] = engine
+        try:
+            st0 = dict(program.stats)
+            _, first, _ = one_run(fn)
+            caps = program.stats["captures"] - st0["captures"]
+            cap_s = program.stats["capture_s"] - st0["capture_s"]
+            grew = program.stats["pool_growth"] - st0["pool_growth"]
+            reps = program.stats["replays"]
+            zero()
+            out, wall, span = one_run(fn)
+            reps = program.stats["replays"] - reps
+            n_cap, stats = launches(), list(dec.last_stats)
+            with program.eager():
+                fn()
+                zero()
+                eout, ewall, espan = one_run(fn)
+                n_eager, estats = launches(), list(dec.last_stats)
+        finally:
+            os.environ.pop("JDT_EXPAND", None)
+        dg = hashlib.sha256(out).hexdigest()[:16]
+        edg = hashlib.sha256(eout).hexdigest()[:16]
+        if out != want or dg != edg:
+            fail(f"phase 16 {name}: captured {dg}, eager {edg}, corpus "
+                 f"{out == want}")
+        if stats != estats or first_bad(stats) != first_bad(estats):
+            fail(f"phase 16 {name}: last_stats differ: captured "
+                 f"{stats} eager {estats}")
+        if n_cap != n_eager:
+            fail(f"phase 16 {name}: launches captured {n_cap} != eager "
+                 f"{n_eager}")
+        found[key] = n_cap
+        kinds = collections.Counter(k for k, _, _ in stats)
+        print(f"program decode {name} ({card}): captured wall "
+              f"{wall * 1e3:.1f} ms, span {span * 1e3:.1f} ms; eager wall "
+              f"{ewall * 1e3:.1f} ms, span {espan * 1e3:.1f} ms "
+              f"({ewall / wall:.2f}x); first captured run "
+              f"{first * 1e3:.1f} ms with {caps} programs captured in "
+              f"{cap_s * 1e3:.1f} ms, growing their pools by {grew} B; "
+              f"{reps} replays in the timed run; "
+              f"{len(program._programs)} programs cached "
+              f"({program.stats['bytes']} B, {program.stats['evictions']} "
+              f"evicted so far); sha256 {dg} equal; last_stats equal "
+              f"({dict(kinds)}; first erring batch {first_bad(stats)}); "
+              f"launches {n_cap} in both", flush=True)
+
+    # the engine-2 decode's host time by phase
+    secs = collections.defaultdict(float)
+
+    def timer(k):
+        def after(a, kw, r, sec):
+            secs[k] += sec
+        return after
+
+    walls = []
+    dec.decompress(raw, index=idx)      # its programs back in the cache
+    with contextlib.ExitStack() as stack:
+        for k in ("_plan", "_upload", "_launch", "_finish"):
+            stack.enter_context(wrapped(I.RawInflater, k, after=timer(k)))
+        stack.enter_context(wrapped(native, "inflate",
+                                    after=timer("native")))
+        for _ in range(3):
+            got, w, _ = one_run(lambda: dec.decompress(raw, index=idx))
+            if got != data:
+                fail("phase 16: the timed engine-2 decode differs")
+            walls.append(w)
+    ms = {k: v / 3 * 1e3 for k, v in secs.items()}
+    wall = statistics.mean(walls) * 1e3
+    print(f"engine-2 decode of {len(data)} B, host time by phase ({card}), "
+          f"mean of 3 warm captured runs: _plan {ms['_plan']:.1f} ms; "
+          f"uploads (_upload) {ms['_upload']:.1f} ms; launch loop (_launch) "
+          f"{ms['_launch']:.1f} ms; readback with _fill (_finish without "
+          f"the native re-decode) {ms['_finish'] - ms['native']:.1f} ms; "
+          f"native re-decode {ms['native']:.1f} ms; wall {wall:.1f} ms "
+          f"(runs {[round(x * 1e3, 1) for x in walls]})", flush=True)
+    return found
+
+
 def walk_checks(per: list, calls: list, synthetic: bool = True) -> int:
     """Kernel B1 (csrc/walk.cu) against its plain version: on every
     windowed batch, tokens and meta against walk_windows_ref and outlen,
@@ -2369,8 +2527,8 @@ def main() -> None:
     per = []
     for words, metas, row, halo, npe, nb, oc, ww in calls:
         args = I._walk_inputs(words, metas[row], npe, nb, ww)
-        e2 = int(I._decode_from_meta(words, metas[row], halo, npe, nb, oc,
-                                     ww)[2])
+        e2 = int(I.decode_batch_windows_stacked(words, metas, row, halo, npe,
+                                                nb, oc, ww)[2])
         per.append((args, halo, oc, e2))
     e2_errs = [p[3] for p in per]
     if e2_errs[:len(errs)] != errs:
@@ -2494,6 +2652,10 @@ def main() -> None:
     t0 = time.perf_counter()
     pg_launches = program_phase(data, card)
     print(f"phase 15: {time.perf_counter() - t0:.1f} s", flush=True)
+    stamp("decode program phase")
+    t0 = time.perf_counter()
+    dp_launches = decode_program_phase(data, raw, idx, card)
+    print(f"phase 16: {time.perf_counter() - t0:.1f} s", flush=True)
     stamp("done")
     enc_kernel["path_launches"] = {"zstream_deflate": zs_launches,
                                    **sh_launches, **mp_launches,
@@ -2526,6 +2688,12 @@ def main() -> None:
         *v5_kernels,
         anch_kernel,
     ]
+    # phase 16's captured decodes: each kernel's launches, through replays
+    for k in kernels:
+        for path, counts in dp_launches.items():
+            if k["name"] in counts:
+                k.setdefault("path_launches", {})[
+                    f"program_decode_{path}"] = counts[k["name"]]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -73,7 +73,9 @@ def zlib_raw(data: bytes, level: int) -> bytes:
 
 def _device_times(calls, enc_calls, statics, iters: int = 4) -> dict:
     """decode_device_ms per decode batch (the captured first windowed batch
-    of each input, replayed through decode_batch_windows_stacked) and
+    of each input, through decode_batch_windows_stacked: the cut of its
+    word window and meta row, then its program's replay, as the decode
+    runs it) and
     encode_device_ms per encode segment (launch_batch, the encode program
     as RawDeflater runs it, on the captured first segment): the span per
     call from CUDA events; dev_ms beside each is its kernels' own time."""

@@ -2,10 +2,12 @@
 port of scripts/decode_capture.py), for timing each stage alone.
 
 RawInflater.capture_calls keeps every windowed batch's device arguments in
-last_calls, and RawDeflater.capture_calls every encode batch's
-encode_batch arguments (the static ones in call_statics). From one
-windowed batch this rebuilds the walk's arguments (codec/inflate.py::
-_walk_inputs) and its tokens (ops/walk.py::walk_checked).
+last_calls, as the decode hands them to its program (recorded outside the
+captured program, which runs no Python on a replay), and
+RawDeflater.capture_calls every encode batch's encode_batch arguments (the
+static ones in call_statics). From one windowed batch this rebuilds the
+walk's arguments (codec/inflate.py::_walk_inputs) and its tokens
+(ops/walk.py::walk_checked), op by op.
 """
 from __future__ import annotations
 
@@ -28,7 +30,9 @@ def capture_decode_sets(enc, dec, inputs):
     (words_full, metas, row, win, npe, nb, oc, wwords); the first encode
     call of each, (data, start, seg_n, dict_len, final_rel); and the
     encoder's static arguments. Raises when an input does not round-trip
-    or left no windowed batch."""
+    or left no windowed batch. row is a 0-d device tensor:
+    codec/inflate.py::decode_batch_windows_stacked takes a call as it
+    is."""
     calls, enc_calls = [], []
     enc.capture_calls = dec.capture_calls = True
     try:

@@ -40,6 +40,7 @@ from ..stream import host_inflate as hi
 from ..stream import native
 from ..utils import device as _device
 from ..utils import errors
+from . import program
 
 HALO = C.WINDOW_SIZE
 
@@ -76,37 +77,53 @@ def _bucket(n: int, base: int) -> int:
 
 def roll_window(win: torch.Tensor, chunk: torch.Tensor) -> torch.Tensor:
     """New 32 KiB window = last HALO bytes of (win ++ chunk), on the device
-    so batches chain without a host readback."""
+    so batches chain without a host readback: a stored chunk's roll (a
+    decode batch rolls its window inside its program, _next_window)."""
     return torch.cat([win, chunk])[-HALO:]
 
 
 def _next_window(halo, out, produced, out_cap: int) -> torch.Tensor:
     """The next batch's 32 KiB window: the last HALO bytes of
-    (halo ++ out[:produced]), produced clamped into [0, out_cap]."""
+    (halo ++ out[:produced]), produced clamped into [0, out_cap] (the
+    reference's roll_window)."""
     cat = torch.cat([halo, out[:out_cap]])
     p0 = torch.clamp(produced, 0, out_cap)
     return cat[p0 + torch.arange(HALO, device=cat.device)]
 
 
-def _slice_words(words_full: torch.Tensor, word_lo: int, wwords: int):
-    """The batch's bucketed word window of the once-uploaded stream, as
-    int64 u32 words; the start clamps into the stream like a dynamic
-    slice."""
-    lo = min(max(word_lo, 0), max(words_full.shape[0] - wwords, 0))
-    return words_full[lo:lo + wwords].to(torch.int64) & 0xFFFFFFFF
+def _slice_words(words_full: torch.Tensor, word_lo: torch.Tensor,
+                 wwords: int) -> torch.Tensor:
+    """The batch's wwords-word window of the once-uploaded stream (int32
+    words), cut on the device: word_lo is a 0-d device tensor, clamped
+    into the stream like the reference's dynamic slice."""
+    hi = max(words_full.shape[0] - wwords, 0)
+    lo = torch.clamp(word_lo.to(torch.int64), 0, hi)
+    return words_full[lo + torch.arange(wwords, device=words_full.device)]
 
 
-def _walk_inputs(words_full, meta, npe: int, ne: int, wwords: int):
+def _u32(words: torch.Tensor) -> torch.Tensor:
+    """int32 words as int64 u32 values (the legacy decode's word type)."""
+    return words.to(torch.int64) & 0xFFFFFFFF
+
+
+def _meta_len(npe: int, ne: int) -> int:
+    """Length of a windowed batch's meta row (_win_meta's layout)."""
+    return 2 + 2 * npe + npe * wk.PE_LANES + ne * 320
+
+
+def _walk_args(words, meta, npe: int, ne: int, wwords: int):
     """Unpack one batch's meta row into the arguments of ops/walk.py::
     walk_checked (the first eight are walk_windows_ref's).
 
+    words: the batch's word window, (wwords,) int32 (_slice_words).
     meta: [word_lo, hist, pe_word0(npe), pe_tab(npe), alanes(npe*PE),
-           ll(ne*288), dl(ne*32)] as one (M,) i32 tensor.
-    Returns (words_full, seg_word0, pe_tab, start_rel (npe*PE,), t1, t2a,
-    t2b, t2c, pe_word0, hist), all views or results on meta's device.
-    """
+           ll(ne*288), dl(ne*32)] as one (M,) i32 tensor; pe_word0 and the
+           anchors are relative to the window.
+    Returns (words, seg_word0, pe_tab, start_rel (npe*PE,), t1, t2a, t2b,
+    t2c, pe_word0, hist), all views or results on meta's device. Each
+    pseudo-entry's segment start clamps into the window (ROADMAP C5), as
+    the reference's dynamic slice of its (PE + 8)-word segment does."""
     PE = wk.PE_LANES
-    word_lo = meta[0]
     hist = meta[1]
     o = 2
     pe_word0 = meta[o:o + npe]
@@ -119,26 +136,33 @@ def _walk_inputs(words_full, meta, npe: int, ne: int, wwords: int):
     o += ne * 288
     dl = meta[o:o + ne * 32].reshape(ne, 32)
     t1, t2a, t2b, t2c = wk.build_entry_tables(ll, dl)
-    seg_word0 = wk.segment_starts(pe_word0, word_lo, wwords).to(torch.int32)
+    seg_word0 = wk.segment_starts(pe_word0, wwords).to(torch.int32)
     lanebit = (torch.clamp(pe_word0, min=0)[:, None]
                + torch.arange(PE, dtype=torch.int32,
                               device=meta.device)[None, :]) * 32
     start_rel = torch.where(alanes >= 0, alanes - lanebit,
                             torch.full_like(alanes, -1)).to(torch.int32)
-    return (words_full, seg_word0, pe_tab, start_rel.reshape(-1), t1, t2a,
+    return (words, seg_word0, pe_tab, start_rel.reshape(-1), t1, t2a,
             t2b, t2c, pe_word0, hist)
 
 
-def _decode_from_meta(words_full, meta, halo, npe: int, ne: int,
-                      out_cap: int, wwords: int, engine: int = 2):
-    """Decode one windowed batch. Returns (out (out_cap,) u8, produced, err,
-    next_halo), all on the device; nothing is read back. The walk checks
-    its exit chain and far offsets (ops/walk.py::walk_checked, in the
-    kernel's epilogue on the card) and hands its lane offsets on. engine 5
-    expands through ops/expand5.py, any other value through
-    ops/expand2.py."""
+def _walk_inputs(words_full, meta, npe: int, ne: int, wwords: int):
+    """_walk_args of one batch from the whole stream's words: its window is
+    cut at meta[0] first."""
+    return _walk_args(_slice_words(words_full, meta[0], wwords), meta, npe, ne,
+                      wwords)
+
+
+def _decode_from_meta(words, meta, halo, npe: int, ne: int, out_cap: int,
+                      wwords: int, engine: int = 2):
+    """Decode one windowed batch from its word window ((wwords,) int32) and
+    meta row. Returns (out (out_cap,) u8, produced, err, next_halo), all on
+    the device; nothing is read back. The walk checks its exit chain and
+    far offsets (ops/walk.py::walk_checked, in the kernel's epilogue on the
+    card) and hands its lane offsets on. engine 5 expands through
+    ops/expand5.py, any other value through ops/expand2.py."""
     tok_lm, _, outlen, laneoff, err_w = wk.walk_checked(
-        *_walk_inputs(words_full, meta, npe, ne, wwords))
+        *_walk_args(words, meta, npe, ne, wwords))
     if engine == 5:
         out, produced, kerr = ex5.expand_tokens(tok_lm, outlen, halo,
                                                 out_cap, laneoff)
@@ -150,23 +174,55 @@ def _decode_from_meta(words_full, meta, halo, npe: int, ne: int,
                                                         out_cap)
 
 
-def decode_batch_windows_stacked(words_full, metas, row: int, halo,
+def _pe(produced, err) -> torch.Tensor:
+    """(produced, err) as one (2,) int64 tensor: one copy into the
+    decode's readback buffer."""
+    return torch.stack([produced.to(torch.int64).reshape(()),
+                        err.to(torch.int64).reshape(())])
+
+
+def _windows_program(words, meta, halo, npe: int, ne: int, out_cap: int,
+                     wwords: int, engine: int):
+    """The windowed batch as a captured program: (out, (produced, err),
+    next_halo)."""
+    out, produced, err, nwin = _decode_from_meta(words, meta, halo, npe, ne,
+                                                 out_cap, wwords, engine)
+    return out, _pe(produced, err), nwin
+
+
+def _windows_batch(words_full, metas, row, halo, npe: int, ne: int,
+                   out_cap: int, wwords: int, engine: int):
+    """Cut the batch's meta row and word window on the device (one gather
+    each, the size of the batch), then run its program: the program's key
+    holds only the batch's buckets, never the stream's length. Returns
+    (out, (produced, err), next_halo)."""
+    meta = metas[:, :_meta_len(npe, ne)][row]
+    words = _slice_words(words_full, meta[0], wwords)
+    return program.run(_windows_program, (words, meta, halo),
+                       (npe, ne, out_cap, wwords, engine))
+
+
+def decode_batch_windows_stacked(words_full, metas, row, halo,
                                  npe: int, ne: int, out_cap: int,
                                  wwords: int, engine: int = 2):
-    """_decode_from_meta over row `row` of the (B, M) stacked metadata: the
-    whole stream's batch metadata uploads in one transfer."""
-    return _decode_from_meta(words_full, metas[row], halo, npe, ne, out_cap,
-                             wwords, engine)
+    """Row `row` (a 0-d device tensor, or an int) of the (B, M) stacked
+    metadata, decoded from the once-uploaded stream's words as a captured
+    program on a card. Returns (out (out_cap,) u8, produced, err,
+    next_halo)."""
+    out, pe, nwin = _windows_batch(words_full, metas, row, halo, npe, ne,
+                                   out_cap, wwords, engine)
+    return out, pe[0], pe[1], nwin
 
 
 def _expand1_inputs(o_len, o_lit, o_dist, halo, out_cap: int,
                     first_slots, nblocks: int):
     """The v1 match expansion's inputs from token slots (the first half of
     the reference's _assemble_pallas). Literals: one scatter into the
-    buffer behind the halo. Matches: compacted to stream order by a stable
-    sort on the slot index (every non-match carries key S, so the blocks'
-    match ranges are the reference's). first_slots: (nblocks+1,) slot index
-    of each block's first lane (lanes are block-contiguous).
+    buffer behind the halo, with a drop slot. Matches: compacted to stream
+    order by a stable sort on the slot index (every non-match carries key
+    S, so the blocks' match ranges are the reference's). first_slots:
+    (nblocks+1,) slot index of each block's first lane (lanes are
+    block-contiguous).
 
     Returns (buf, (m_off, m_d, m_len, ranges), produced, err); err counts
     tokens reaching past HALO + out_cap."""
@@ -178,12 +234,12 @@ def _expand1_inputs(o_len, o_lit, o_dist, halo, out_cap: int,
     off = HALO + torch.cumsum(o_len, 0) - o_len
     produced = o_len.sum()
     N = ((HALO + out_cap + ex.REGION) // 128 + 2) * 128
-    buf = torch.zeros(N, dtype=torch.uint8, device=dev)
+    buf = torch.zeros(N + 1, dtype=torch.uint8, device=dev)
     buf[:HALO] = halo
     is_tok = o_len > 0
     is_lit = is_tok & (o_dist == 0)
-    put = is_lit & (off < N)
-    buf[off[put]] = o_lit[put].to(torch.uint8)
+    buf = buf.scatter_(0, dk.drop_index(is_lit, off, N),
+                       o_lit.to(torch.uint8))[:N]
 
     is_m = o_dist > 0
     slot = torch.arange(S, dtype=i64, device=dev)
@@ -203,16 +259,12 @@ def _expand1_inputs(o_len, o_lit, o_dist, halo, out_cap: int,
 
 
 def _assemble_kernel(o_len, o_lit, o_dist, halo, out_cap: int,
-                     first_slots, nblocks: int, capture=None):
+                     first_slots, nblocks: int):
     """Token slots -> output bytes through the v1 match expansion
     (ops/expand.py), block by block; port of the reference's
-    _assemble_pallas. Returns (out (out_cap,) u8, produced, err). A list
-    passed as `capture` gets the expansion's inputs, (buf, mats,
-    produced), with buf copied before the in-place expansion."""
+    _assemble_pallas. Returns (out (out_cap,) u8, produced, err)."""
     buf, mats, produced, err = _expand1_inputs(
         o_len, o_lit, o_dist, halo, out_cap, first_slots, nblocks)
-    if capture is not None:
-        capture.append((buf.clone(), mats, produced))
     buf = ex.expand_matches(buf, *mats)
     return buf[HALO:HALO + out_cap], produced, err
 
@@ -222,38 +274,66 @@ def _tables(ll, dl):
             dk.build_tables_batch(dl, *dk.dist_attrs()))
 
 
-def decode_batch_anchored(words, tb, starts, ends, ll, dl, halo,
-                          lanes: int, nblocks: int, out_cap: int,
-                          use_kernel: bool = False, first_slots=None,
-                          capture=None):
-    """Exact anchored decode: every lane walks 64 symbols from a known
-    symbol anchor (no speculation, no dense f). words: the batch's int64
-    word window; tb/starts/ends: (lanes,) table base, start and end anchor
-    bits (window-local). capture: see _assemble_kernel. Returns (out
-    (out_cap,) u8, produced, err, next_halo)."""
+def _anchored_slots(words, tb, starts, ends, ll, dl):
+    """The anchored walks' token slots (len, lit, dist; flat) and err."""
     ltab, dtab = _tables(ll, dl)
     outlen, lit, dist, werr = dk.anchored_walk(words, ltab, dtab, tb,
                                                starts, ends)
-    slots = (outlen.reshape(-1), lit.reshape(-1), dist.reshape(-1))
+    return (outlen.reshape(-1), lit.reshape(-1), dist.reshape(-1)), werr
+
+
+def anchored_expand1_inputs(words, tb, starts, ends, ll, dl, halo,
+                            nblocks: int, out_cap: int, first_slots):
+    """The v1 match expansion's inputs (buf, mats, produced) of one
+    anchored batch, from decode_batch_anchored's arguments, computed op by
+    op: what a harness holds the expansion kernel to (a replayed program
+    runs no Python, so nothing inside it can hand them out)."""
+    slots, _ = _anchored_slots(words, tb, starts, ends, ll, dl)
+    buf, mats, produced, _ = _expand1_inputs(*slots, halo, out_cap,
+                                             first_slots, nblocks)
+    return buf, mats, produced
+
+
+def decode_batch_anchored(words, tb, starts, ends, ll, dl, halo,
+                          lanes: int, nblocks: int, out_cap: int,
+                          use_kernel: bool = False, first_slots=None):
+    """Exact anchored decode: every lane walks 64 symbols from a known
+    symbol anchor (no speculation, no dense f). words: the batch's int64
+    word window; tb/starts/ends: (lanes,) table base, start and end anchor
+    bits (window-local). Returns (out (out_cap,) u8, produced, err,
+    next_halo)."""
+    slots, werr = _anchored_slots(words, tb, starts, ends, ll, dl)
     if use_kernel:
         out, produced, aerr = _assemble_kernel(*slots, halo, out_cap,
-                                               first_slots, nblocks, capture)
+                                               first_slots, nblocks)
     else:
         out, produced, aerr = dk.assemble_output(*slots, halo, out_cap)
     return out, produced, werr + aerr, _next_window(halo, out, produced,
                                                     out_cap)
 
 
-def decode_batch(words, bit_lo: int, block_starts, sym_starts, block_ends,
+def _anchored_program(words, tb, starts, ends, ll, dl, halo, first_slots,
+                      lanes: int, nblocks: int, out_cap: int,
+                      use_kernel: bool):
+    """The anchored batch as a captured program, from its int32 word
+    window: (out, (produced, err), next_halo)."""
+    out, produced, err, nwin = decode_batch_anchored(
+        _u32(words), tb, starts, ends, ll, dl, halo, lanes, nblocks,
+        out_cap, use_kernel, first_slots)
+    return out, _pe(produced, err), nwin
+
+
+def decode_batch(words, bit_lo, block_starts, sym_starts, block_ends,
                  ll, dl, halo, nbits: int, nblocks: int, nseg: int,
                  out_cap: int):
     """Decode `nblocks` Huffman blocks spanning local bits [0, nbits): a
     speculative decode at every bit position, then the symbol positions by
     segmented orbits. words: the batch's int64 word window; bit_lo: its bit
-    of local position 0. block_starts/sym_starts/block_ends: (B,) local
-    header, first-symbol and end bits (dummy blocks use nbits). nseg:
-    per-block segment-grid length. Returns (out (out_cap,) u8, produced,
-    err)."""
+    of local position 0 (a 0-d int64 tensor, or an int).
+    block_starts/sym_starts/block_ends: (B,) local header, first-symbol and
+    end bits (dummy blocks use nbits). nseg: per-block segment-grid length.
+    Returns (out (out_cap,) u8, produced, err, next_halo): the reference's
+    decode_batch and, in the same program, its roll_window."""
     dev = words.device
     ltab, dtab = _tables(ll, dl)
     p = torch.arange(nbits, dtype=torch.int64, device=dev)
@@ -265,7 +345,38 @@ def decode_batch(words, bit_lo: int, block_starts, sym_starts, block_ends,
                                       nbits, nseg, SEG_BITS)
     out, produced, aerr = dk.assemble_output(outlen[slots], lit[slots],
                                              dist[slots], halo, out_cap)
-    return out, produced, oerr + flags[slots].sum() + aerr
+    return (out, produced, oerr + flags[slots].sum() + aerr,
+            _next_window(halo, out, produced, out_cap))
+
+
+def _dense_program(words, bit_lo, block_starts, sym_starts, block_ends, ll,
+                   dl, halo, nbits: int, nblocks: int, nseg: int,
+                   out_cap: int):
+    """The dense batch as a captured program, from its int32 word window:
+    (out, (produced, err), next_halo)."""
+    out, produced, err, nwin = decode_batch(
+        _u32(words), bit_lo, block_starts, sym_starts, block_ends, ll, dl,
+        halo, nbits, nblocks, nseg, out_cap)
+    return out, _pe(produced, err), nwin
+
+
+def _host_pack(parts) -> tuple:
+    """Ints and int arrays back to back in one int32 host array, and each
+    part's (offset, shape): a batch's inputs travel in one upload."""
+    flat, spans, o = [], [], 0
+    for p in parts:
+        a = np.asarray(p, np.int32)
+        flat.append(a.reshape(-1))
+        spans.append((o, a.shape))
+        o += a.size
+    return np.concatenate(flat), spans
+
+
+def _views(flat: torch.Tensor, spans) -> list:
+    """The parts of a _host_pack array once it is on the device, as
+    views."""
+    return [flat[o:o + int(np.prod(sh, dtype=np.int64))].view(sh)
+            for o, sh in spans]
 
 
 def _win_abs_from_deltas(index, recs):
@@ -299,9 +410,11 @@ class RawInflater:
         self.last_stats: list = []
         # when True, decompress keeps in last_calls the device arguments of
         # every windowed batch, as (words_full, metas, row, win, npe, nb, oc,
-        # wwords), and the v1 expansion's inputs of every anchored batch
-        # that runs it, as (buf, mats, produced), so a harness can re-run or
-        # inspect the exact batch
+        # wwords) with row a 0-d device tensor (decode_batch_windows_stacked
+        # takes them), and the v1 expansion's inputs of every anchored
+        # batch that runs it, as (buf, mats, produced), computed op by op
+        # beside its program (anchored_expand1_inputs), so a harness can
+        # re-run or inspect the exact batch
         self.capture_calls = False
         self.last_calls: list = []
 
@@ -493,8 +606,7 @@ class RawInflater:
 
     def decompress(self, raw: bytes, index=None, dictionary: bytes = b"",
                    expected_size: int | None = None) -> bytes:
-        dev = self.device
-        self.last_stats = stats_rec = []
+        self.last_stats = []
         self.last_calls = []
         if index is None:
             # foreign stream: the native inflator (or the Python referee)
@@ -504,78 +616,118 @@ class RawInflater:
             else:
                 out, _, _ = hi.inflate_raw(raw, dictionary)
             return out
-
-        # the whole stream uploads once; each batch reads its bucketed word
-        # window from it
+        # the whole stream uploads once; each batch cuts its bucketed word
+        # window from it on the device
         W_pad = _bucket((len(raw) >> 2) + 18, 1 << 13)
         work, n_out = self._plan(raw, index, dictionary, W_pad)
+        inputs = self._upload(raw, work, dictionary, W_pad)
+        plan, res = self._launch(work, inputs)
+        return self._finish(raw, dictionary, plan, res, n_out)
+
+    def _upload(self, raw: bytes, work: list, dictionary: bytes,
+                W_pad: int) -> dict:
+        """Every host-to-device copy of one decompress, each through pinned
+        memory without a synchronise: the stream's words, the windowed
+        batches' stacked meta rows, each other batch's inputs packed in one
+        array, each stored chunk, the first window."""
+        dev = self.device
         rawpad = np.zeros(W_pad * 4, np.uint8)
         rawpad[:len(raw)] = np.frombuffer(raw, np.uint8)
-        words_full = torch.from_numpy(rawpad.view(np.int32)).to(dev)
-
-        # Phase 1 runs every batch with a device-chained window and no
-        # device->host read; phase 2 reads (produced, err) back once and
-        # re-decodes natively from the first failed batch (corruption, or an
-        # index that does not fit the stream).
         halo0 = np.zeros(HALO, np.uint8)
         d0 = dictionary[-HALO:]
         if d0:
             halo0[HALO - len(d0):] = np.frombuffer(d0, np.uint8)
+        up = {"words": _device.upload(rawpad.view(np.int32), dev),
+              "win": _device.upload(halo0, dev), "metas": None,
+              "items": []}
         wmetas = [w[1][0] for w in work if w[0] == "win"]
-        metas_dev = None
         if wmetas:
             M = _bucket(max(len(m) for m in wmetas), 1 << 10)
             stackm = np.zeros((len(wmetas), M), np.int32)
-            for k2, m in enumerate(wmetas):
-                stackm[k2, :len(m)] = m
-            metas_dev = torch.from_numpy(stackm).to(dev)
-        win = torch.from_numpy(halo0).to(dev)
+            for k, m in enumerate(wmetas):
+                stackm[k, :len(m)] = m
+            up["metas"] = _device.upload(stackm, dev)
+            up["rows"] = torch.arange(len(wmetas), device=dev)
+        for kind, p in work:
+            if kind == "stored":
+                item = _device.upload(np.frombuffer(p, np.uint8).copy(), dev)
+            elif kind == "anchored":
+                (tb, st, en, ll, dl, _, _, _, _, first, word_lo,
+                 _, _, _) = p
+                flat, spans = _host_pack((word_lo, tb, st, en, ll, dl, first))
+                item = _views(_device.upload(flat, dev), spans)
+            elif kind == "dense":
+                (bit_local, starts, syms, ends, ll, dl, _, _, _, _, word_lo,
+                 _, _, _) = p
+                flat, spans = _host_pack((word_lo, bit_local, starts, syms,
+                                          ends, ll, dl))
+                item = _views(_device.upload(flat, dev), spans)
+            else:
+                item = None
+            up["items"].append(item)
+        return up
+
+    def _launch(self, work: list, up: dict):
+        """Phase 1: every batch, each device batch one program on a card,
+        the window chained on the device, no device-to-host read. Returns
+        the plan, whose entries are ("stored", bytes) or ("dev", (kind,
+        out, total_out, b0)), and the (batches, 2) int64 tensor of each
+        device batch's (produced, err)."""
+        dev = self.device
         # the expansion engine of the windowed batches, read once per call
         engine = int(os.environ.get("JDT_EXPAND", "2") or 2)
-
-        def up(a):
-            return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-
+        words_full, metas, win = up["words"], up["metas"], up["win"]
+        res = torch.empty((sum(k != "stored" for k, _ in work), 2),
+                          dtype=torch.int64, device=dev)
         plan = []
-        wrow = 0
-        for kind, payload in work:
+        wrow = di = 0
+        for (kind, payload), item in zip(work, up["items"]):
             if kind == "stored":
                 plan.append(("stored", payload))
-                chunk = torch.from_numpy(np.frombuffer(payload, np.uint8).copy())
-                win = roll_window(win, chunk.to(dev))
+                win = roll_window(win, item)
                 continue
             if kind == "win":
-                (meta, npe, nb2, oc2, ww2, total_out, b0) = payload
+                (_, npe, nb2, oc2, ww2, total_out, b0) = payload
+                row = up["rows"][wrow]
                 if self.capture_calls:
                     self.last_calls.append(
-                        (words_full, metas_dev, wrow, win, npe, nb2, oc2, ww2))
-                o, produced, err, win = decode_batch_windows_stacked(
-                    words_full, metas_dev, wrow, win, npe, nb2, oc2, ww2,
-                    engine)
+                        (words_full, metas, row, win, npe, nb2, oc2, ww2))
+                o, pe, win = _windows_batch(words_full, metas, row, win, npe,
+                                            nb2, oc2, ww2, engine)
                 wrow += 1
             elif kind == "anchored":
-                (tb_a, st_a, en_a, ll2, dl2, lanes, nb2, oc2, use_kernel,
-                 first_slots, word_lo2, ww2, total_out, b0) = payload
-                wds = _slice_words(words_full, word_lo2, ww2)
-                o, produced, err, win = decode_batch_anchored(
-                    wds, up(tb_a), up(st_a), up(en_a), up(ll2), up(dl2), win,
-                    lanes, nb2, oc2, use_kernel, up(first_slots),
-                    self.last_calls if self.capture_calls else None)
+                (_, _, _, _, _, lanes, nb2, oc2, use_kernel, _, _, ww2,
+                 total_out, b0) = payload
+                word_lo, tb, st, en, ll, dl, first = item
+                wds = _slice_words(words_full, word_lo, ww2)
+                if self.capture_calls and use_kernel:
+                    self.last_calls.append(anchored_expand1_inputs(
+                        _u32(wds), tb, st, en, ll, dl, win, nb2, oc2, first))
+                o, pe, win = program.run(
+                    _anchored_program, (wds, tb, st, en, ll, dl, win, first),
+                    (lanes, nb2, oc2, use_kernel))
             else:
-                (bit_local2, starts2, syms2, ends2, ll2, dl2, nbits2, nb2,
-                 nseg2, oc2, word_lo2, ww2, total_out, b0) = payload
-                wds = _slice_words(words_full, word_lo2, ww2)
-                o, produced, err = decode_batch(
-                    wds, bit_local2, up(starts2), up(syms2), up(ends2),
-                    up(ll2), up(dl2), win, nbits2, nb2, nseg2, oc2)
-                win = _next_window(win, o, produced, oc2)
-            plan.append(("dev", (o, produced, err, total_out, b0)))
+                (_, _, _, _, _, _, nbits2, nb2, nseg2, oc2, _, ww2,
+                 total_out, b0) = payload
+                word_lo, bit_lo, starts, syms, ends, ll, dl = item
+                wds = _slice_words(words_full, word_lo, ww2)
+                o, pe, win = program.run(
+                    _dense_program,
+                    (wds, bit_lo, starts, syms, ends, ll, dl, win),
+                    (nbits2, nb2, nseg2, oc2))
+            res[di].copy_(pe)
+            di += 1
+            plan.append(("dev", (kind, o, total_out, b0)))
+        return plan, res
 
-        dev_batches = [p for kind, p in plan if kind == "dev"]
-        metas = (torch.stack([torch.stack((p[1].long(), p[2].long()))
-                              for p in dev_batches]).cpu().numpy()
-                 if dev_batches else np.zeros((0, 2), np.int64))
-        kinds = iter([k for k, _ in work if k != "stored"])
+    def _finish(self, raw: bytes, dictionary: bytes, plan: list,
+                res: torch.Tensor, n_out: int) -> bytes:
+        """Phase 2: read every device batch's (produced, err) back at once,
+        copy the verified batches out in one transfer (_fill), and from the
+        first batch that failed its checks (corruption, or an index that
+        does not fit the stream) re-decode natively."""
+        stats_rec = self.last_stats
+        pes = res.cpu().numpy()
         out = bytearray()
         di = 0
         fill = []                   # (host_offset, device_array, nbytes)
@@ -585,10 +737,9 @@ class RawInflater:
                 stats_rec.append(("stored", len(p), 0))
                 STATS_LOG.append(("stored", len(p), 0))
                 continue
-            o, produced, err, total_out, b0 = p
-            pe, ee = int(metas[di][0]), int(metas[di][1])
+            wkind, o, total_out, b0 = p
+            pe, ee = int(pes[di][0]), int(pes[di][1])
             di += 1
-            wkind = next(kinds)
             stats_rec.append((wkind, pe, ee))
             STATS_LOG.append((wkind, pe, ee))
             if ee or pe != total_out:

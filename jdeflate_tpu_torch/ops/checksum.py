@@ -10,8 +10,14 @@ Same algebra as jdeflate_tpu/ops/checksum.py, which computes these in XLA
     (raw(A||B) = M_len(B) raw(A) ^ raw(B)).
   - crc32_combine / adler32_combine: host-side scalars.
 
-Word arithmetic runs in int64 masked to 32 bits: PyTorch has no u32
-shifts on the CPU.
+Each runs as a captured program per padded size (codec/program.py); a
+size above 1 MiB runs the 1 MiB program piece by piece, chaining the
+running value through its init argument, so one program serves them all.
+
+Word arithmetic runs in int64 masked to 32 bits (PyTorch has no u32
+shifts on the CPU), except over the data itself: crc32's per-bit pass
+works on int32 bit patterns and adler32 in int32 folded mod 65521, so
+neither widens the data to int64.
 """
 from __future__ import annotations
 
@@ -28,6 +34,7 @@ CRC_POLY = 0xEDB88320  # reflected
 _M32 = 0xFFFFFFFF
 _ADLER_CHUNK = 512
 _CRC_CHUNK = 256        # bytes per chunk
+_PIECE = 1 << 20        # the largest padded size one program takes
 
 
 @functools.lru_cache(maxsize=None)
@@ -152,6 +159,13 @@ def _crc_tables_on(dev: torch.device):
             torch.as_tensor(_pow2_matrix_stack(), device=dev))
 
 
+@functools.lru_cache(maxsize=None)
+def _crc_consts32_on(dev: torch.device) -> torch.Tensor:
+    """The bit-linear chunk constants as int32 bit patterns on `dev`."""
+    k = _bitlinear_consts(_CRC_CHUNK).view(np.int32)
+    return torch.as_tensor(k.copy(), device=dev)
+
+
 def _pad_bucket(n: int, chunk: int) -> int:
     """Padded size of an n-byte input: a chunk multiple, doubling up to
     1 MiB and in 1 MiB steps beyond, so that few shapes (captured programs)
@@ -200,15 +214,18 @@ def _crc32_program(data: torch.Tensor, scalars: torch.Tensor):
     front-padded with zeros (invisible to the raw CRC, whose state starts
     at zero); scalars = (init, n), int64 on data's device. Returns a 0-d
     int64 tensor. The port of the JAX _crc32_device: no host read, so it
-    runs as one captured program per padded size."""
+    runs as one captured program per padded size. The per-bit pass over
+    the data works on int32 bit patterns (a quarter of the int64 working
+    set); the chunk states from there on are int64 u32 values."""
     c = _CRC_CHUNK
     K, stack = _crc_tables_on(data.device)
+    K32 = _crc_consts32_on(data.device)
     init, n = scalars.unbind()
-    words = data.view(torch.int32).to(torch.int64).reshape(-1, c // 4) & _M32
+    words = data.view(torch.int32).reshape(-1, c // 4)
     v = torch.zeros_like(words)
     for j in range(32):
-        v = v ^ torch.where(((words >> j) & 1) > 0, K[:, j], 0)
-    raw = _xor_reduce_last(v)
+        v ^= torch.where(((words >> j) & 1) != 0, K32[:, j], 0)
+    raw = _xor_reduce_last(v).to(torch.int64) & _M32
     # log-depth tree: raw(A||B) = M_len(B) raw(A) ^ raw(B)
     level = c.bit_length() - 1      # chunk bytes = 2^level
     while raw.shape[0] > 1:
@@ -225,36 +242,87 @@ def _crc32_program(data: torch.Tensor, scalars: torch.Tensor):
     return ((~(raw[0] ^ adv)) & _M32,)
 
 
+def _modsum(x: torch.Tensor) -> torch.Tensor:
+    """Sum mod ADLER_BASE of int32 values, each reduced mod ADLER_BASE and
+    summed 4096 at a time so that no partial sum reaches 2^31 (the JAX
+    _modsum). Returns a 0-d int32 tensor."""
+    while x.numel() > 1:
+        pad = (-x.numel()) % 4096
+        if pad:
+            x = torch.cat([x, x.new_zeros(pad)])
+        x = (x.reshape(-1, 4096) % ADLER_BASE).sum(
+            1, dtype=torch.int32) % ADLER_BASE
+    return x.reshape(()) % ADLER_BASE
+
+
+def _mulmod(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a * b mod ADLER_BASE for int32 a, b in [0, ADLER_BASE), in int32: b
+    is split at bit 8 so that no product reaches 2^25."""
+    hi = (a * (b >> 8)) % ADLER_BASE
+    return (hi * 256 + a * (b & 255)) % ADLER_BASE
+
+
 def _adler32_program(data: torch.Tensor, scalars: torch.Tensor):
     """adler32 of the first n bytes of `data`, a uint8 tensor of whole
     chunks back-padded with zeros (which add nothing to either sum);
     scalars = (init, n), int64 on data's device. Returns a 0-d int64
-    tensor. The port of the JAX _adler32_device; the sums fit in int64, so
-    they fold mod 65521 once."""
+    tensor. The port of the JAX _adler32_device, in int32 like it: a
+    chunk's sums fit (255 * 512 * 511 / 2 < 2^31), and every sum over
+    chunks folds mod 65521 as it goes (_modsum, _mulmod)."""
     c = _ADLER_CHUNK
+    B = ADLER_BASE
+    i32 = torch.int32
     init, n = scalars.unbind()
-    d = data.to(torch.int64).reshape(-1, c)
-    s_c = d.sum(1)
-    w_c = (d * torch.arange(c, device=d.device)).sum(1)
-    o_c = torch.arange(d.shape[0], device=d.device) * c
-    s1_0, s2_0 = init & 0xFFFF, (init >> 16) & 0xFFFF
-    s1 = (s1_0 + s_c.sum()) % ADLER_BASE
-    # s2 = s2_0 + n*s1_0 + sum over bytes of (n - pos) * b, per chunk
-    # (n - o_c) * S_c - W_c, folded mod BASE before the sum
-    term = ((n - o_c) * s_c - w_c) % ADLER_BASE
-    s2 = (s2_0 + n * s1_0 + term.sum()) % ADLER_BASE
+    d = data.reshape(-1, c)
+    s_c = d.sum(1, dtype=i32)                            # < 255 * 512
+    w_c = (d.to(i32) * torch.arange(c, dtype=i32, device=d.device)).sum(
+        1, dtype=i32)
+    # each chunk's offset mod BASE, without forming the offset
+    o_m = (torch.arange(d.shape[0], dtype=i32, device=d.device) % B
+           * c) % B
+    s1_0, s2_0 = (init & 0xFFFF) % B, ((init >> 16) & 0xFFFF) % B
+    nm = n % B
+    s1 = (s1_0 + _modsum(s_c)) % B
+    # s2 = s2_0 + n*s1_0 + sum over chunks of (n - o_c) * S_c - W_c
+    t = (_mulmod((nm.to(i32) + B - o_m) % B, s_c % B) + B - w_c % B) % B
+    s2 = (s2_0 + (nm * s1_0) % B + _modsum(t)) % B
     return ((s2 << 16) | s1,)
 
 
 def _checksum(fn, data, init: int, chunk: int, front: bool, device) -> int:
-    """fn over data padded to its bucket, as a captured program on a card;
-    one readback, the 32-bit result (init for empty data)."""
+    """fn over data padded to its bucket (the JAX package's _pad_bucket),
+    as captured programs on a card; one readback, the 32-bit result (init
+    for empty data). A bucket above _PIECE bytes is whole pieces of _PIECE
+    bytes, the padding in the first piece (crc32, front) or the last
+    (adler32, back): each piece runs the one _PIECE-byte program with the
+    running value as its init, which both checksums chain as zlib's init
+    argument does. So every size above 1 MiB shares one program. Bytes
+    go up in one transfer; a tensor is cut into pieces where it lies, so
+    no buffer of its size is made."""
     n = data.numel() if isinstance(data, torch.Tensor) else len(data)
     if n == 0:
         return init & _M32
-    buf = _padded(data, n, _pad_bucket(n, chunk), front, device)
-    sc = _device.upload(np.array([init & _M32, n], np.int64), buf.device)
-    return int(program.run(fn, (buf, sc))[0])
+    size = _pad_bucket(n, chunk)
+    dev = (data.device if isinstance(data, torch.Tensor)
+           else _device.resolve(device))
+    pad = size - n
+    cuts = [min(max(k - (pad if front else 0), 0), n)
+            for k in range(0, size + 1, min(size, _PIECE))]
+    # the init, then each piece's count of real bytes, in one upload
+    sc = _device.upload(np.array([init & _M32] + [b - a for a, b in zip(
+        cuts, cuts[1:])], np.int64), dev)
+    step = min(size, _PIECE)
+    if isinstance(data, torch.Tensor):
+        flat = data.reshape(-1)
+        pieces = (_padded(flat[a:b], b - a, step, front, dev)
+                  for a, b in zip(cuts, cuts[1:]))
+    else:                   # one upload of the padded bucket
+        whole = _padded(data, n, size, front, dev)
+        pieces = (whole[k:k + step] for k in range(0, size, step))
+    cur = sc[0]
+    for k, piece in enumerate(pieces):
+        cur = program.run(fn, (piece, torch.stack([cur, sc[k + 1]])))[0]
+    return int(cur)
 
 
 def crc32(data, init: int = 0, device="cuda") -> int:

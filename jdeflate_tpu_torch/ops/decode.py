@@ -24,6 +24,8 @@ index counts from the end once, then every index is clamped into range.
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -46,8 +48,12 @@ _M32 = 0xFFFFFFFF
 
 def lz_resolve(val: torch.Tensor, src: torch.Tensor, resolved: torch.Tensor,
                mask: torch.Tensor, max_rounds: int):
-    """Resolve back-reference chains by pointer doubling, stopping as soon as
-    every masked position is resolved.
+    """Resolve back-reference chains by pointer doubling: the reference's
+    while_loop (jdeflate_tpu/ops/decode.py::lz_resolve), which stops once
+    every masked position is resolved or after max_rounds rounds, run as
+    max_rounds masked rounds with no host read. A round changes nothing
+    once the loop's condition is false (every position then holds still),
+    so the result is the while_loop's, unmasked positions included.
 
     val: (N,) output bytes (literal positions already set).
     src: (N,) copy-source index per position (self for resolved).
@@ -55,12 +61,19 @@ def lz_resolve(val: torch.Tensor, src: torch.Tensor, resolved: torch.Tensor,
     Returns (val & 0xFF, resolved)."""
     pv = (val & 0xFF) | (resolved.to(val.dtype) << 8)
     for _ in range(max_rounds):
-        if not bool(((pv < 256) & mask).any()):
-            break
-        done = pv >= 256
-        pv = torch.where(done, pv, pv[src])
-        src = torch.where(done, src, src[src])
+        go = ((pv < 256) & mask).any()
+        hold = (pv >= 256) | ~go
+        pv = torch.where(hold, pv, pv[src])
+        src = torch.where(hold, src, src[src])
     return pv & 0xFF, pv >= 256
+
+
+def drop_index(keep: torch.Tensor, idx: torch.Tensor,
+               n: int) -> torch.Tensor:
+    """Scatter targets into an (n + 1,) buffer whose slot n is dropped: idx
+    where keep and inside [0, n), else n."""
+    return torch.where(keep & (idx >= 0) & (idx < n), idx,
+                       torch.full_like(idx, n))
 
 
 def assemble_output(o_len, o_lit, o_dist, halo, out_cap: int):
@@ -74,18 +87,19 @@ def assemble_output(o_len, o_lit, o_dist, halo, out_cap: int):
     off = HALO + torch.cumsum(o_len, 0) - o_len
     produced = o_len.sum()
     n = HALO + out_cap
-    val = torch.zeros(n, dtype=torch.int64, device=dev)
-    val[:HALO] = halo.to(torch.int64)
     is_tok = o_len > 0
     is_lit = is_tok & (o_dist == 0)
-    put = is_lit & (off < n)
-    val[off[put]] = o_lit[put]
+    # scatters with a drop slot at n (the reference's mode="drop"): no
+    # boolean index, so no shape depends on the data
+    val = torch.zeros(n + 1, dtype=torch.int64, device=dev)
+    val[:HALO] = halo.to(torch.int64)
+    val = val.scatter_(0, drop_index(is_lit, off, n), o_lit)[:n]
 
     S = o_len.shape[0]
     tok_idx = torch.arange(S, dtype=torch.int64, device=dev)
-    cover = torch.full((n,), -1, dtype=torch.int64, device=dev)
-    put = is_tok & (off < n)           # token offsets are distinct
-    cover[off[put]] = tok_idx[put]
+    cover = torch.full((n + 1,), -1, dtype=torch.int64, device=dev)
+    # token offsets are distinct, so the reference's max is a plain write
+    cover = cover.scatter_(0, drop_index(is_tok, off, n), tok_idx)[:n]
     cover = torch.cummax(cover, 0).values
     covc = cover.clamp(0, S - 1)
     q = torch.arange(n, dtype=torch.int64, device=dev)
@@ -133,6 +147,17 @@ def rev15(x: torch.Tensor) -> torch.Tensor:
     return x >> 1
 
 
+@functools.lru_cache(maxsize=None)
+def _attrs_on(kinds: bytes, extras: bytes, payloads: bytes,
+              dev: torch.device):
+    """Per-symbol attribute rows (the int32 bytes of each) as int64
+    tensors resident on `dev`: a captured decode program cannot upload
+    them."""
+    return tuple(torch.as_tensor(np.frombuffer(a, np.int32).astype(np.int64),
+                                 device=dev)
+                 for a in (kinds, extras, payloads))
+
+
 def build_tables_batch(lengths: torch.Tensor, kinds, extras,
                        payloads) -> torch.Tensor:
     """Flat decode tables for a batch of trees.
@@ -148,11 +173,9 @@ def build_tables_batch(lengths: torch.Tensor, kinds, extras,
     diff and a cumsum, as in the reference."""
     dev = lengths.device
     B, n = lengths.shape
-    kinds = torch.as_tensor(np.asarray(kinds), dtype=torch.int64, device=dev)
-    extras = torch.as_tensor(np.asarray(extras), dtype=torch.int64,
-                             device=dev)
-    payloads = torch.as_tensor(np.asarray(payloads), dtype=torch.int64,
-                               device=dev)
+    kinds, extras, payloads = _attrs_on(
+        *(np.asarray(a, np.int32).tobytes() for a in (kinds, extras,
+                                                      payloads)), dev)
     l = lengths.to(torch.int64)
     codes = huffman.canonical_codes(l, C.MAX_CODE_BITS)[0]
     used = l > 0
@@ -291,17 +314,18 @@ def f_eval(words: torch.Tensor, ltab: torch.Tensor, dtab: torch.Tensor,
     return nxt, outlen, lit, dist, invalid, is_eob
 
 
-def wavefront_decode(words: torch.Tensor, bit_lo: int, nbits: int,
+def wavefront_decode(words: torch.Tensor, bit_lo, nbits: int,
                      bid: torch.Tensor, ltab: torch.Tensor,
                      dtab: torch.Tensor):
     """Speculative decode at every bit position in [bit_lo, bit_lo + nbits).
 
-    words: (W,) int64 u32 words of the batch's window. bid: (nbits,) block
-    id per position (tables are per block). Returns (f_local, outlen, lit,
-    dist, flags, eob), each (nbits + 1,) int64 with an absorbing sentinel at
-    index nbits: f_local is the next symbol position in local coordinates
-    (EOB and invalid entries map to the sentinel); flags is 1 for an invalid
-    entry."""
+    words: (W,) int64 u32 words of the batch's window. bit_lo: the window
+    bit of local position 0, an int or a 0-d int64 tensor (a captured
+    program's input). bid: (nbits,) block id per position (tables are per
+    block). Returns (f_local, outlen, lit, dist, flags, eob), each
+    (nbits + 1,) int64 with an absorbing sentinel at index nbits: f_local
+    is the next symbol position in local coordinates (EOB and invalid
+    entries map to the sentinel); flags is 1 for an invalid entry."""
     dev = words.device
     p = bit_lo + torch.arange(nbits, dtype=torch.int64, device=dev)
     tb = bid.to(torch.int64) * TABLE_SIZE

@@ -270,7 +270,7 @@ def spill_pass(tok_lm, laneoff, S16_flat, out_cap: int):
     rows = tok_lm[idxs]
     offr, seedr = _tok_attrs(rows, laneoff[idxs])
     sel = (seedr != 0) & (vals[:, None] >= 0)
-    sel[:, :S_SLICE] = False                # fast slice already seeded
+    sel[:, :S_SLICE].fill_(False)           # fast slice already seeded
     tgt = torch.where(sel & (offr >= 0) & (offr < out_cap), offr,
                       torch.full_like(offr, out_cap)).long()
     S16 = torch.cat([S16_flat, torch.zeros(1, dtype=S16_flat.dtype,

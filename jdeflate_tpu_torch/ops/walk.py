@@ -39,6 +39,7 @@ dist-1 9:24), so readers mask after every shift.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -64,6 +65,14 @@ def _attr_tables():
     return lattr, dattr
 
 
+@functools.lru_cache(maxsize=None)
+def _attr_rows_on(dev: torch.device):
+    """The length and dist attribute rows as int64 tensors resident on
+    `dev`: a captured decode program cannot upload them."""
+    return tuple(torch.as_tensor(a, dtype=torch.int64, device=dev)
+                 for a in _attr_tables())
+
+
 def _tree_rows(lengths: torch.Tensor, nsym: int):
     """(limt (E,15), firstbase (E,15), sorted_syms (E,nsym)) for E trees.
 
@@ -80,7 +89,7 @@ def _tree_rows(lengths: torch.Tensor, nsym: int):
     used = l > 0
     cnt = torch.zeros(E, 16, dtype=torch.int64, device=l.device)
     cnt.scatter_add_(1, l.clamp(0, 15), used.to(torch.int64))
-    cnt[:, 0] = 0
+    cnt[:, 0].fill_(0)
     limt, fb = [], []
     code = torch.zeros(E, dtype=torch.int64, device=l.device)
     base = torch.zeros(E, dtype=torch.int64, device=l.device)
@@ -101,8 +110,8 @@ def _tree_rows(lengths: torch.Tensor, nsym: int):
 def build_entry_tables(ll: torch.Tensor, dl: torch.Tensor):
     """(E, 288) litlen + (E, 32) dist code lengths -> T1, T2a, T2b, T2c,
     each (E, 128) i32 (layout in the module docstring)."""
-    lattr, dattr = _attr_tables()
     dev = ll.device
+    lattr, dattr = _attr_rows_on(dev)
     E = ll.shape[0]
     llim, lfb, lsym = _tree_rows(ll, 288)
     dlim, dfb, dsym = _tree_rows(dl, 32)
@@ -112,10 +121,10 @@ def build_entry_tables(ll: torch.Tensor, dl: torch.Tensor):
     t1[:, 32:47] = dlim
     t1[:, 48:63] = dfb
     t1[:, 64:94] = dsym[:, :30]
-    t1[:, 94:124] = torch.as_tensor(dattr, dtype=torch.int64, device=dev)
+    t1[:, 94:124] = dattr
     t2c = torch.zeros(E, 128, dtype=torch.int64, device=dev)
     t2c[:, 0:32] = lsym[:, 256:288]
-    t2c[:, 32:61] = torch.as_tensor(lattr, dtype=torch.int64, device=dev)
+    t2c[:, 32:61] = lattr
     i32 = torch.int32
     return (t1.to(i32), lsym[:, 0:128].to(i32).contiguous(),
             lsym[:, 128:256].to(i32).contiguous(), t2c.to(i32))
@@ -267,17 +276,17 @@ def walk_ref(seg0, seg1, seg2, start_rel, t1, t2a, t2b, t2c):
             eobf)
 
 
-def segment_starts(pe_word0, word_lo, wwords: int):
-    """Absolute first stream word of each pseudo-entry's lanes.
+def segment_starts(pe_word0, wwords: int):
+    """First word of each pseudo-entry's lanes in the batch's word window.
 
     The reference slices a (PE_LANES + 8)-word segment per pseudo-entry out
-    of the batch's bucketed word window [word_lo, word_lo + wwords) with a
-    dynamic slice, which clamps the start into that window. The same clamp
-    here: the last pseudo-entry of a batch whose lanes reach past the window
-    then reads shifted words, fails the exit-chain check and falls back to
-    the native decoder, as in the reference."""
-    return word_lo + torch.clamp(torch.clamp(pe_word0, min=0), 0,
-                                 wwords - (PE_LANES + 8))
+    of the batch's bucketed window of wwords words with a dynamic slice,
+    which clamps the start into that window. The same clamp here: the last
+    pseudo-entry of a batch whose lanes reach past the window then reads
+    shifted words, fails the exit-chain check and falls back to the native
+    decoder, as in the reference."""
+    return torch.clamp(torch.clamp(pe_word0, min=0), 0,
+                       wwords - (PE_LANES + 8))
 
 
 def walk_windows_ref(words, seg_word0, pe_tab, start_rel, t1, t2a, t2b, t2c):

@@ -186,17 +186,18 @@ def test_expand1_kernel_matches_plain_on_card_across_seams(name):
     nb = first.shape[0] - 1
     args = [torch.from_numpy(x) for x in (o_len, o_lit, o_dist, halo)]
     n0 = tex.expand_matches.launches
-    cap_calls = []
     ko, kp, ke = tinf._assemble_kernel(*(a.cuda() for a in args), cap,
-                                       torch.from_numpy(first).cuda(), nb,
-                                       cap_calls)
+                                       torch.from_numpy(first).cuda(), nb)
     torch.cuda.synchronize()
     assert tex.expand_matches.launches == n0 + 1
     ro, rp, re_ = tinf._assemble_kernel(*args, cap, torch.from_numpy(first),
                                         nb)
     assert int(kp) == int(rp) and int(ke) == int(re_) == 0
     assert torch.equal(ko.cpu(), ro)
-    buf, mats, _ = cap_calls[0]
+    # the expansion's inputs, as _assemble_kernel builds them
+    buf, mats, _, _ = tinf._expand1_inputs(*(a.cuda() for a in args), cap,
+                                           torch.from_numpy(first).cuda(),
+                                           nb)
     done = tex.expand_matches(buf.clone(), *mats)
     assert torch.equal(tex.expand_matches(done.clone(), *mats), done)
 

@@ -294,16 +294,17 @@ def test_decode_batch_anchored_kernel_path_matches_pallas(corpus):
             jnp.asarray(halo), lanes, nb, oc, True, jnp.asarray(first))
         jo, jw = np.asarray(jo), np.asarray(jw)
     t = torch.from_numpy
-    cap = []
-    to, tp, te, tw = tinf.decode_batch_anchored(
-        t(words.astype(np.int64)), t(tb), t(st), t(en), t(ll), t(dl),
-        t(halo), lanes, nb, oc, True, t(first), cap)
+    args = (t(words.astype(np.int64)), t(tb), t(st), t(en), t(ll), t(dl),
+            t(halo))
+    to, tp, te, tw = tinf.decode_batch_anchored(*args, lanes, nb, oc, True,
+                                                t(first))
     assert int(tp) == int(jp) == total
     assert int(te) == int(je) == 0
     np.testing.assert_array_equal(to.numpy(), jo)
     np.testing.assert_array_equal(tw.numpy(), jw)
-    # the capture hook keeps the expansion's inputs, taken before it ran
-    (buf, mats, produced), = cap
+    # the expansion's inputs, as a harness takes them beside the program
+    buf, mats, produced = tinf.anchored_expand1_inputs(*args, nb, oc,
+                                                       t(first))
     assert int(produced) == total
     assert not torch.equal(buf[HALO:HALO + oc], to)
     assert torch.equal(tex.expand_matches_ref(buf, *mats)[HALO:HALO + oc], to)

@@ -289,12 +289,13 @@ def test_expand1_match_lists_are_disjoint_and_increasing():
              total, _) = item
             words = rawpad.view(np.uint32)[word_lo:word_lo + ww]
             t = torch.from_numpy
-            cap = []
+            args = (t(words.astype(np.int64)), t(tb), t(st), t(en), t(ll),
+                    t(dl), halo)
             _, produced, err, _ = tinf.decode_batch_anchored(
-                t(words.astype(np.int64)), t(tb), t(st), t(en), t(ll),
-                t(dl), halo, lanes, nb, oc, True, t(first), cap)
+                *args, lanes, nb, oc, True, t(first))
             assert int(err) == 0 and int(produced) == total
-            (buf, (m_off, m_d, m_len, ranges), _), = cap
+            buf, (m_off, m_d, m_len, ranges), _ = \
+                tinf.anchored_expand1_inputs(*args, nb, oc, t(first))
             n = buf.shape[0]
             idx = torch.cat([torch.arange(int(a), int(b))
                              for a, b in ranges[:, :2].tolist()])
