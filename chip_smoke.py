@@ -44,7 +44,9 @@ RANK, started by the script itself), every rank on cuda:0: 4 processes x
 processes x 2 ranks with verify=True and the fault hook on global rank 1;
 every process's blob, info and retries must equal the one-process run's,
 and the match walk is held to its plain version on each worker's first
-round. Levels and bench (phase 14): the first 256 KiB encoded at levels 1
+round; every worker must exit 0 with no gloo thread left after its
+teardown (parallel/mesh.py's order), and the phase prints their return
+codes. Levels and bench (phase 14): the first 256 KiB encoded at levels 1
 and 9 on the card and on the CPU must give equal streams and indexes, the
 match walk held to its plain version on their batches; then the port's
 bench (python3 -m jdeflate_tpu_torch.bench, BENCH_CORPUS_MB=8) runs in a
@@ -1701,12 +1703,29 @@ def canonical(x):
     return x
 
 
+def gloo_threads() -> list:
+    """The names of this process's gloo threads: the process group's run
+    loops (pt_gloo_runloop) and its transport's event loop
+    (gloo_tcp_loop)."""
+    names = []
+    for task in os.listdir("/proc/self/task"):
+        try:
+            with open(f"/proc/self/task/{task}/comm") as f:
+                name = f.read().strip()
+        except OSError:         # the thread ended while listed
+            continue
+        if "gloo" in name:
+            names.append(name)
+    return sorted(names)
+
+
 def spawn_workers(tmp: str, world: int, local: int, corpus: str,
-                  runs: list) -> list:
+                  runs: list) -> tuple:
     """Run `world` worker processes of this script (mp_worker), each with
     `local` ranks on cuda:0, in one gloo group, through `runs`. Every
-    worker must exit 0 within MP_WORKER_S; on expiry all are killed. Returns
-    each worker's results."""
+    worker must exit 0 within MP_WORKER_S, with no gloo thread left after
+    its teardown; on expiry all are killed. Returns (each worker's results,
+    each worker's return code)."""
     import pickle
     os.makedirs(tmp)
     job = os.path.join(tmp, "job.pkl")
@@ -1744,17 +1763,44 @@ def spawn_workers(tmp: str, world: int, local: int, corpus: str,
     for r in range(world):
         with open(os.path.join(tmp, f"out{r}.pkl"), "rb") as f:
             outs.append(pickle.load(f))
-    return outs
+    left = {r: o["threads"] for r, o in enumerate(outs) if o["threads"]}
+    if left:
+        fail(f"gloo threads left after the workers' teardown: {left}")
+    return outs, [p.returncode for p in procs]
 
 
 def mp_worker(job_path: str, rank: int) -> None:
-    """One process of phase 13: join the gloo group, then for each run a
+    """One process of phase 13: join the gloo group, run the job's runs
+    (mp_runs), then tear down in the order of parallel/mesh.py: the group
+    ends with its last reference, before the interpreter finalizes. Writes
+    {run: results, "threads": gloo threads left after the teardown} to
+    out<rank>.pkl."""
+    import datetime
+    import pickle
+    import torch.distributed as dist
+    with open(job_path, "rb") as f:
+        job = pickle.load(f)
+    dist.init_process_group(
+        "gloo", init_method="file://" + job["init"],
+        world_size=job["world"], rank=rank,
+        timeout=datetime.timedelta(seconds=60))
+    try:
+        # every mesh, deflater and group reference is local to mp_runs
+        res = mp_runs(job)
+    finally:
+        dist.destroy_process_group()
+    res["threads"] = gloo_threads()
+    with open(os.path.join(os.path.dirname(job_path), f"out{rank}.pkl"),
+              "wb") as f:
+        pickle.dump(res, f)
+
+
+def mp_runs(job: dict) -> dict:
+    """Phase 13's runs in one worker, on the default group: for each run a
     warm compress of the first round, the counts zeroed, a barrier, the
     timed compress, and B3 held to its plain version on this process's
-    first round. Writes {run: results} to out<rank>.pkl."""
-    import datetime
+    first round. Returns {run: results}."""
     import hashlib
-    import pickle
     import torch
     import torch.distributed as dist
     from jdeflate_tpu_torch.codec import deflate as D
@@ -1764,14 +1810,9 @@ def mp_worker(job_path: str, rank: int) -> None:
     if any(m == "jax" or m.startswith(("jax.", "jdeflate_tpu."))
            or m == "jdeflate_tpu" for m in sys.modules):
         fail("the port pulled in jax or jdeflate_tpu")
-    with open(job_path, "rb") as f:
-        job = pickle.load(f)
     with open(job["corpus"], "rb") as f:
         data = f.read()
     world, local = job["world"], job["local"]
-    dist.init_process_group(
-        "gloo", init_method="file://" + job["init"], world_size=world,
-        rank=rank, timeout=datetime.timedelta(seconds=60))
     group = dist.group.WORLD
     # one card per process is make_mesh's own layout; two ranks of cuda:0
     # in each process are given as devices with the group
@@ -1806,10 +1847,7 @@ def mp_worker(job_path: str, rank: int) -> None:
                      "blob": blob, "info": info, "retries": enc.retries,
                      "t0": t0, "t1": t1, "gather_s": gsecs,
                      "crc_s": secs, "launches": launches, "b3_err": b3_err}
-    dist.destroy_process_group()
-    with open(os.path.join(os.path.dirname(job_path), f"out{rank}.pkl"),
-              "wb") as f:
-        pickle.dump(res, f)
+    return res
 
 
 def multiproc_phase(data: bytes, card: str, ref: dict) -> tuple:
@@ -1828,17 +1866,18 @@ def multiproc_phase(data: bytes, card: str, ref: dict) -> tuple:
         with open(corpus, "wb") as f:
             f.write(data)
         t0 = time.perf_counter()
-        outs4 = spawn_workers(os.path.join(tmp, "w4"), 4, 1, corpus, [
+        outs4, rc4 = spawn_workers(os.path.join(tmp, "w4"), 4, 1, corpus, [
             ("13a", len(data), "members", False, None),
             ("13b", part, "stream", False, None)])
         t4 = time.perf_counter() - t0
         t0 = time.perf_counter()
-        outs2 = spawn_workers(os.path.join(tmp, "w2"), 2, 2, corpus, [
+        outs2, rc2 = spawn_workers(os.path.join(tmp, "w2"), 2, 2, corpus, [
             ("13c", part, "members", True, 1)])
         t2 = time.perf_counter() - t0
     print(f"multi-process spawns: 4 workers (13a, 13b) {t4:.1f} s, 2 "
-          f"workers (13c) {t2:.1f} s, start-up and warm runs included",
-          flush=True)
+          f"workers (13c) {t2:.1f} s, start-up and warm runs included; "
+          f"return codes {rc4} (4x1), {rc2} (2x2); no gloo thread left "
+          "after any worker's teardown", flush=True)
     for name, outs, layout, was, key in (
             ("13a", outs4, "4 processes x 1 rank", "12a", "multiproc_members"),
             ("13b", outs4, "4 processes x 1 rank", "12d", "multiproc_stream"),

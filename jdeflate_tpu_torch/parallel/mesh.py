@@ -19,6 +19,21 @@ here runs torch.distributed.init_process_group and passes its group. Each
 process then holds a ProcessMesh: its own ranks' devices and its place in
 the global mesh, which is every process's ranks in process-rank order (the
 order in which jax.devices() lists devices across processes).
+
+Teardown of a gloo group. Its threads (the run loops, pt_gloo_runloop,
+and the transport's event loop, gloo_tcp_loop) end only with the group's
+last reference: destroy_process_group() drops torch.distributed's own
+reference but stops neither while a ProcessMesh or a ShardedDeflater
+still holds the group. A group that lives into interpreter finalization
+can abort the process ("terminate called without an active exception"):
+a run loop that releases a finished collective's tensor then waits for
+the GIL, Python ends it with pthread_exit, and that unwind through a
+noexcept frame calls std::terminate. So each process tears down in this
+order: drop every mesh and deflater of the group (keep them local to a
+function that returns), call destroy_process_group(), then exit. The
+group then ends inside destroy_process_group(), its threads joined.
+Nothing of this package keeps a group past the meshes and deflaters
+that hold it, a raising compress included (ROADMAP C15).
 """
 from __future__ import annotations
 

@@ -88,7 +88,9 @@ class ShardedDeflater:
     processes: a ProcessMesh (parallel.mesh.make_mesh(group=...)), or this
     process's devices with the torch.distributed `group`; every process of
     the group then calls compress with the same bytes and gets the same
-    result.
+    result. The deflater holds the group as long as it lives: drop it
+    before destroy_process_group() and the process's exit, in the order
+    of parallel/mesh.py's teardown.
     """
 
     def __init__(self, mesh=None, level: int = 6, block_size: int = 1 << 16,
@@ -168,15 +170,18 @@ class ShardedDeflater:
                 return empty, {"mode": "members",
                                "members": [(0, len(empty), 0)], "n": 0}
             return empty, {"mode": "stream", "n": 0}
-        err = None
+        # The error is reported and re-raised inside the except clause: a
+        # local holding it would sit in its own traceback's frame, a cycle
+        # that keeps this deflater, and so the group, past the caller's
+        # teardown (ROADMAP C15).
         try:
             shards = self._encode_ranks(np.frombuffer(data, np.uint8))
-        except Exception as e:      # reported to the group, then re-raised
-            shards, err = [], e
+        except Exception as e:
+            if self.group is not None:
+                self._gather([], e)
+            raise
         if self.group is not None:
-            shards = self._gather(shards, err)
-        if err is not None:
-            raise err
+            shards = self._gather(shards, None)
         return self._assemble(sorted(shards, key=lambda r: r[0]), n)
 
     def _same_input(self, n: int, crc: int) -> None:

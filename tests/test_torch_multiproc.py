@@ -14,7 +14,14 @@ error in one process, must raise in every process. Tolerance: exact
 equality. Every join has a timeout and stops the workers on expiry
 (SIGTERM first: each worker then dumps its threads' stacks into its log);
 a late or failed spawn reports every worker's return code, seconds since
-spawn and log tail.
+spawn and log tail. Every worker tears down in the order of
+parallel/mesh.py and reports the gloo threads left after it, which must
+be none (ROADMAP C15).
+
+Run as `PYTHONPATH=. python tests/test_torch_multiproc.py --stress
+[explode|full] [SPAWNS [AT_ONCE]]` from the repository's root, the file
+spawns the 2x2 layout SPAWNS times (default 120), AT_ONCE at a time
+(default 10), and prints each failed spawn's report and a JSON summary.
 
 Worker processes do not run tests/conftest.py, so each is handed the
 parent's capped probe depths (ROADMAP C4) before it encodes.
@@ -25,6 +32,7 @@ _T0 = time.monotonic()   # a worker's log times count from here, imports in
 
 import datetime
 import faulthandler
+import gc
 import os
 import pickle
 import signal
@@ -35,7 +43,7 @@ import pytest
 import torch
 import torch.distributed as dist
 
-from chip_smoke import canonical
+from chip_smoke import canonical, gloo_threads
 from jdeflate_tpu_torch.codec import levels as tlevels
 from jdeflate_tpu_torch.parallel import mesh as tmesh
 from jdeflate_tpu_torch.parallel import shard as tshard
@@ -103,6 +111,10 @@ def _killer(rank, how):
 
 @pytest.fixture(scope="module")
 def cases(corpus):
+    return make_cases(corpus)
+
+
+def make_cases(corpus) -> dict:
     """name -> (data, ShardedDeflater keywords, fault hook or None). The
     first rank of process 1 is global rank `local`, so a hook given
     "p1" hits process 1 in every layout."""
@@ -127,55 +139,71 @@ def cases(corpus):
     }
 
 
+def _note(what):
+    print(f"[{time.monotonic() - _T0:.1f} s] {what}", flush=True)
+
+
 def _worker(job_path: str, rank: int) -> None:
     """One process of a spawn: join the gloo group, run every case of the
-    job in sequence, write {case: result} to out<rank>.pkl."""
+    job in sequence, tear down in the order of parallel/mesh.py (the group
+    ends with its last reference, before the interpreter finalizes), write
+    {case: result, "threads": gloo threads left after the teardown} to
+    out<rank>.pkl. With job["gc"] False the cyclic garbage collector is
+    off, so that only reference counts can end the group."""
     # a join that times out sends SIGTERM first: the log then shows where
     # every thread of this process was
     faulthandler.register(signal.SIGTERM, all_threads=True)
-
-    def note(what):
-        print(f"[{time.monotonic() - _T0:.1f} s] {what}", flush=True)
     with open(job_path, "rb") as f:
         job = pickle.load(f)
+    if not job["gc"]:
+        gc.disable()
     torch.set_num_threads(1)
-    note("job read")
+    _note("job read")
     tlevels._PROBE_CAP.update(job["probe_cap"])
-    world, local = job["world"], job["local"]
     dist.init_process_group(
-        "gloo", init_method="file://" + job["init"], world_size=world,
-        rank=rank, timeout=datetime.timedelta(seconds=PG_TIMEOUT_S))
-    note("group joined")
-    group = dist.group.WORLD
-    res = {}
+        "gloo", init_method="file://" + job["init"],
+        world_size=job["world"], rank=rank,
+        timeout=datetime.timedelta(seconds=PG_TIMEOUT_S))
+    _note("group joined")
     try:
-        if job["device"] == "cpu":
-            mesh = tmesh.make_mesh(local, device="cpu", group=group)
-        else:
-            mesh = tmesh.make_mesh(group=group)
-        res["mesh"] = (tuple(str(d) for d in mesh.local), mesh.first,
-                       mesh.size)
-        for name, (data, kw, hook) in job["cases"].items():
-            note(f"case {name}")
-            if name == "mismatch":
-                data = data + bytes([rank])
-            enc = tshard.ShardedDeflater(mesh=mesh, **kw)
-            if hook is not None:
-                enc.fault_hook = _killer(local if hook[0] == "p1"
-                                         else hook[0], hook[1])
-            try:
-                blob, info = enc.compress(data)
-                res[name] = ("ok", blob, info, enc.retries)
-            except Exception as e:
-                res[name] = ("raised", type(e).__name__, str(e))
-        if job["device"] == "cpu":
-            res["rules"] = _group_mesh_rules(group)
+        # every mesh, deflater and group reference is local to _run_cases
+        res = _run_cases(job, rank)
     finally:
         dist.destroy_process_group()
+    res["threads"] = gloo_threads()
     with open(os.path.join(os.path.dirname(job_path), f"out{rank}.pkl"),
               "wb") as f:
         pickle.dump(res, f)
-    note("done")
+    _note(f"done; gloo threads left: {res['threads']}")
+
+
+def _run_cases(job: dict, rank: int) -> dict:
+    """Run every case of the job on the default group: {case: ("ok",
+    blob, info, retries) or ("raised", error class, message)}."""
+    group = dist.group.WORLD
+    local = job["local"]
+    res = {}
+    if job["device"] == "cpu":
+        mesh = tmesh.make_mesh(local, device="cpu", group=group)
+    else:
+        mesh = tmesh.make_mesh(group=group)
+    res["mesh"] = (tuple(str(d) for d in mesh.local), mesh.first, mesh.size)
+    for name, (data, kw, hook) in job["cases"].items():
+        _note(f"case {name}")
+        if name == "mismatch":
+            data = data + bytes([rank])
+        enc = tshard.ShardedDeflater(mesh=mesh, **kw)
+        if hook is not None:
+            enc.fault_hook = _killer(local if hook[0] == "p1" else hook[0],
+                                     hook[1])
+        try:
+            blob, info = enc.compress(data)
+            res[name] = ("ok", blob, info, enc.retries)
+        except Exception as e:
+            res[name] = ("raised", type(e).__name__, str(e))
+    if job["device"] == "cpu":
+        res["rules"] = _group_mesh_rules(group)
+    return res
 
 
 def _group_mesh_rules(group) -> dict:
@@ -196,12 +224,14 @@ def _group_mesh_rules(group) -> dict:
     return out
 
 
-def _spawn(tmp, world: int, local: int, job_cases: dict, device="cpu"):
-    """Start `world` workers on a job in directory tmp."""
+def _spawn(tmp, world: int, local: int, job_cases: dict, device="cpu",
+           gc_on: bool = True):
+    """Start `world` workers on a job in directory tmp (gc_on False: the
+    workers' cyclic garbage collector off)."""
     tmp.mkdir(parents=True, exist_ok=True)
     job = {"probe_cap": dict(tlevels._PROBE_CAP), "world": world,
            "local": local, "device": device, "init": str(tmp / "pg"),
-           "cases": job_cases}
+           "cases": job_cases, "gc": gc_on}
     with open(tmp / "job.pkl", "wb") as f:
         pickle.dump(job, f)
     return _start([[sys.executable, os.path.abspath(__file__),
@@ -288,19 +318,32 @@ NAMES = ["members", "stream", "empty_members", "empty_stream", "level9",
          "fault_members", "fault_stream"]
 
 
+def _layout_job(cases) -> dict:
+    """A layout's job: every case with its hook on process 1, then the
+    cases that must raise (input that differs by process, a hook that
+    raises in process 1) and a case after them."""
+    job_cases = {name: (data, kw, hook if hook is None
+                        else ("p1", hook[1]))
+                 for name, (data, kw, hook) in cases.items()}
+    data, base, _ = cases["members"]
+    job_cases["mismatch"] = (data, base, None)
+    job_cases.update(_explode_job(cases))
+    job_cases["after_errors"] = cases["members"]
+    return job_cases
+
+
+def _explode_job(cases) -> dict:
+    """The members case with a hook that raises in process 1."""
+    data, base, _ = cases["members"]
+    return {"explode": (data, base, ("p1", "explode"))}
+
+
 def _run_layout(world, local, cases, tmp):
     """One spawn of `world` processes x `local` ranks running every case,
     plus the cases that must raise; the one-process results are computed
     here while the workers run. Returns (the workers' results, one-process
     results)."""
-    job_cases = {name: (data, kw, hook if hook is None
-                        else ("p1", hook[1]))
-                 for name, (data, kw, hook) in cases.items()}
-    base = cases["members"][1]
-    job_cases["mismatch"] = (cases["members"][0], base, None)
-    job_cases["explode"] = (cases["members"][0], base, ("p1", "explode"))
-    job_cases["after_errors"] = cases["members"]
-    procs = _spawn(tmp, world, local, job_cases)
+    procs = _spawn(tmp, world, local, _layout_job(cases))
     try:
         want = _one_process({name: (data, kw, hook if hook is None
                                     else (local, hook[1]))
@@ -313,15 +356,26 @@ def _run_layout(world, local, cases, tmp):
 
 @pytest.fixture(scope="module")
 def spawns(cases, tmp_path_factory):
-    """layout -> _run_layout's result, each layout spawned once."""
-    done = {}
+    """layout -> _run_layout's result, each layout spawned once. A failed
+    spawn is not repeated: the first case of its layout fails with its
+    report, and every later case with the same report."""
+    done, failed = {}, {}
 
     def get(world, local):
-        if (world, local) not in done:
-            done[world, local] = _run_layout(
-                world, local, cases,
-                tmp_path_factory.mktemp(f"mp{world}x{local}"))
-        return done[world, local]
+        key = world, local
+        if key in failed:
+            pytest.fail(f"the {world}x{local} spawn failed for an earlier "
+                        f"case of this layout:\n{failed[key]}",
+                        pytrace=False)
+        if key not in done:
+            try:
+                done[key] = _run_layout(
+                    world, local, cases,
+                    tmp_path_factory.mktemp(f"mp{world}x{local}"))
+            except (Exception, pytest.fail.Exception) as e:
+                failed[key] = f"{type(e).__name__}: {e}"
+                raise
+        return done[key]
     return get
 
 
@@ -407,6 +461,56 @@ def test_group_errors_raise_everywhere(spawned):
         assert canonical(out["after_errors"]) == canonical(want["members"]), r
 
 
+def test_teardown_ends_gloo_threads(spawned):
+    """After the worker's teardown no gloo thread is left in any process,
+    so none is alive while the interpreter finalizes (ROADMAP C15)."""
+    _, outs, _ = spawned
+    for r, out in enumerate(outs):
+        assert out["threads"] == [], r
+
+
+def test_raise_releases_group(cases, tmp_path):
+    """ROADMAP C15: the process whose fault hook raised in compress must
+    let its group go with the caller's last reference. With the cyclic
+    garbage collector off in the workers (reference counts alone), 2
+    processes x 2 ranks run the explode case and tear down; no gloo
+    thread may be left in either process, and the error contract holds.
+    A group kept alive past the teardown (by a cycle through the raised
+    error's traceback) keeps its run-loop threads into interpreter
+    finalization, where one that releases a finished work's tensor waits
+    for the GIL, is ended by pthread_exit and aborts the process."""
+    outs = _join(_spawn(tmp_path, 2, 2, _explode_job(cases), gc_on=False),
+                 tmp_path)
+    assert outs[1]["explode"] == ("raised", "RuntimeError", "rank fault")
+    assert outs[0]["explode"][:2] == ("raised", "JDeflateError")
+    assert "process 1: RuntimeError: rank fault" in outs[0]["explode"][2]
+    for r, out in enumerate(outs):
+        assert out["threads"] == [], r
+
+
+def test_raise_leaves_no_cycle(cases):
+    """A compress that raises leaves no reference cycle behind: with the
+    cyclic garbage collector off, the deflater (which holds the group of
+    a process mesh) goes with its last reference once the error is
+    handled."""
+    import weakref
+    data, kw, _ = cases["members"]
+    was = gc.isenabled()
+    gc.disable()
+    try:
+        enc = tshard.ShardedDeflater(mesh=tmesh.make_mesh(2, device="cpu"),
+                                     **kw)
+        enc.fault_hook = _killer(0, "explode")
+        alive = weakref.ref(enc)
+        with pytest.raises(RuntimeError, match="rank fault"):
+            enc.compress(data)
+        del enc
+        assert alive() is None
+    finally:
+        if was:
+            gc.enable()
+
+
 @pytest.fixture(scope="module")
 def jax_4ranks(cases):
     """The JAX ShardedDeflater on four devices of the 8-device CPU mesh,
@@ -454,5 +558,56 @@ def test_two_processes_on_one_card(cases, tmp_path):
         assert canonical(out["members"]) == canonical(want), r
 
 
+def stress(job: str, spawns: int, at_once: int) -> int:
+    """The concurrent 2x2 stress: `spawns` spawns of 2 processes x 2 local
+    ranks, `at_once` of them running at a time, on the job "explode" (that
+    case alone) or "full" (a layout's whole job). Prints each failed
+    spawn's report and a JSON summary line; returns the failed count."""
+    import collections
+    import json
+    import pathlib
+    import tempfile
+    import conftest                 # the tests' corpus and probe caps
+    tlevels._PROBE_CAP.update(conftest._levels._PROBE_CAP)
+    rng = conftest.np.random.default_rng(1234)
+    cases = make_cases(lambda kind, n: conftest.make_corpus(rng, kind, n))
+    job_cases = _layout_job(cases) if job == "full" else _explode_job(cases)
+    rcs, failed, running, started = collections.Counter(), 0, [], 0
+    t0 = time.monotonic()
+    with tempfile.TemporaryDirectory() as root:
+        while started < spawns or running:
+            while started < spawns and len(running) < at_once:
+                tmp = pathlib.Path(root, f"s{started}")
+                running.append((tmp, _spawn(tmp, 2, 2, job_cases),
+                                time.monotonic() + JOIN_S))
+                started += 1
+            time.sleep(0.1)
+            for item in list(running):
+                tmp, procs, deadline = item
+                late = time.monotonic() > deadline
+                if not late and any(p.poll() is None for p in procs):
+                    continue
+                running.remove(item)
+                for p in procs:
+                    if p.poll() is None:
+                        p.kill()
+                        p.wait()
+                    rcs[p.returncode] += 1
+                if late or any(p.returncode for p in procs):
+                    failed += 1
+                    print(_report(procs, tmp, f"spawn {tmp.name} failed"
+                                  + (" (late)" if late else "")), flush=True)
+    print(json.dumps({"job": job, "layout": "2x2", "spawns": spawns,
+                      "at_once": at_once, "failed": failed,
+                      "return_codes": {str(k): v for k, v in rcs.items()},
+                      "seconds": time.monotonic() - t0}), flush=True)
+    return failed
+
+
 if __name__ == "__main__":
+    if sys.argv[1] == "--stress":
+        # python tests/test_torch_multiproc.py --stress [explode|full]
+        #     [SPAWNS [AT_ONCE]]
+        args = sys.argv[2:] + ["explode", "120", "10"][len(sys.argv) - 2:]
+        sys.exit(1 if stress(args[0], int(args[1]), int(args[2])) else 0)
     _worker(sys.argv[1], int(sys.argv[2]))
