@@ -37,7 +37,10 @@ mode over the first 8 MiB (its combined CRC32 equal to zlib's), and a
 verify=True run whose fault hook corrupts one shard (one retry, right
 output); the match walk is held to its plain version on the members
 encode's batches, the walk and the token expansion on the member
-decodes'. Multi-process: the same sharded runs over a gloo group of
+decodes'; then the two level-9 members cases of the tests
+(L9_MEMBER_CASES: 4 KiB blocks, one where a match crosses a 2 KiB split
+seam), whose card blob, info and per-batch decode record must equal the
+CPU's. Multi-process: the same sharded runs over a gloo group of
 worker processes of this script (python3 chip_smoke.py --mp-worker JOB
 RANK, started by the script itself), every rank on cuda:0: 4 processes x
 1 rank in members mode over the corpus and in stream mode over 8 MiB, 2
@@ -1491,14 +1494,118 @@ def zstream_phase(data: bytes, gz: bytes, card: str) -> int:
     return launches
 
 
+# The level-9 members cases of tests/test_torch_parallel.py::
+# test_level9_member_index_matches_jax (ROADMAP C11, C16), name: (seed,
+# sha256 of the 16 KiB, bytes each member's windowed batch produces). At
+# seed 1064 a match crosses the second member's 2 KiB split seam at byte
+# 6,144, the sub-block after it starts one byte late, and that member's
+# batch produces 4,097 bytes; at seed 0 no match crosses a seam. The counts
+# hold at the tests' capped probe depths and at the full ones.
+L9_MEMBER_CASES = {
+    "seam_exact": (
+        0, "078235d829230189f6a4407f3975ae7d91835bfe689a54df5fbc5fbc6c8720b7",
+        (4096, 4096)),
+    "match_across_seam": (
+        1064,
+        "bcd0017cf2b45af75be52dde5594482a4bb12fb66753c4bbaa171dfa5dfdf09d",
+        (4096, 4097)),
+}
+L9_WORDS = [b"the ", b"quick ", b"brown ", b"fox ", b"jumps ", b"over ",
+            b"lazy ", b"dog ", b"pack ", b"my ", b"box ", b"with ",
+            b"five ", b"dozen ", b"liquor ", b"jugs \n"]
+
+
+def l9_member_data(seed: int) -> bytes:
+    """The 16 KiB of a level-9 members case: ("text", "random") * 4 pieces
+    of 2,048 B from np.random.default_rng(seed), by the rule of the "text"
+    and "random" kinds of tests/conftest.py::make_corpus (copied: the tests'
+    conftest imports jax)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    parts = []
+    for kind in ("text", "random") * 4:
+        if kind == "text":
+            out = bytearray()
+            while len(out) < 2048:
+                out += L9_WORDS[int(rng.integers(len(L9_WORDS)))]
+            parts.append(bytes(out[:2048]))
+        else:
+            parts.append(rng.integers(0, 256, 2048, dtype=np.uint8).tobytes())
+    return b"".join(parts)
+
+
+def l9_members_phase(card: str) -> None:
+    """Phase 12f: the level-9 members cases (L9_MEMBER_CASES) on
+    SHARD_RANKS ranks of cuda:0, 4 KiB blocks, 2 per shard: the card's blob
+    and info must equal the port's CPU run's, decompress_members on the
+    card must give the bytes back, and its per-batch record (kind, bytes
+    produced, err) must equal the CPU decode's, with each member's batch
+    stopping short of the member (C11) at the case's byte counts."""
+    import hashlib
+    import torch
+    from jdeflate_tpu_torch.codec import inflate as I
+    from jdeflate_tpu_torch.ops import expand2 as ex2
+    from jdeflate_tpu_torch.ops import lz77
+    from jdeflate_tpu_torch.ops import walk as wk
+    from jdeflate_tpu_torch.parallel import shard
+    kw = dict(level=9, block_size=4096, blocks_per_device=2, mode="members")
+    enc = shard.ShardedDeflater(mesh=[torch.device("cuda", 0)] * SHARD_RANKS,
+                                **kw)
+    cenc = shard.ShardedDeflater(mesh=["cpu"] * SHARD_RANKS, **kw)
+    for name, (seed, sha, produced) in L9_MEMBER_CASES.items():
+        data = l9_member_data(seed)
+        if hashlib.sha256(data).hexdigest() != sha:
+            fail(f"level-9 members {name}: the bytes of seed {seed} are not "
+                 f"the tests' ({hashlib.sha256(data).hexdigest()})")
+        cblob, cinfo = cenc.compress(data)
+        I.STATS_LOG.clear()
+        if shard.decompress_members(cblob, cinfo, device="cpu") != data:
+            fail(f"level-9 members {name}: the CPU decode differs")
+        crec = list(I.STATS_LOG)
+        lz77.match_walk.launches = 0
+        (blob, info), ewall, _ = one_run(lambda: enc.compress(data))
+        b3 = lz77.match_walk.launches
+        if blob != cblob or canonical(info) != canonical(cinfo):
+            fail(f"level-9 members {name}: the card's blob ({len(blob)} B) "
+                 f"or info differs from the CPU's ({len(cblob)} B)")
+        if [m[3]["block_bytes"] for m in info["members"]] != [[0, 4096]] * 2:
+            fail(f"level-9 members {name}: the index lists "
+                 f"{[m[3]['block_bytes'] for m in info['members']]}")
+        wk.walk_checked.launches = 0
+        ex2.expand_tokens.launches = 0
+        I.STATS_LOG.clear()
+        out, dwall, _ = one_run(
+            lambda: shard.decompress_members(blob, info, device="cuda"))
+        rec = list(I.STATS_LOG)
+        dm = (wk.walk_checked.launches, ex2.expand_tokens.launches)
+        if out != data:
+            fail(f"level-9 members {name}: decompress_members on the card "
+                 f"does not give the bytes back")
+        if rec != crec or tuple(p for _, p, _ in rec) != produced or not all(
+                k == "win" and p < 8192 and e for k, p, e in rec):
+            fail(f"level-9 members {name}: the card's record {rec}, the "
+                 f"CPU's {crec}, bytes produced expected {produced}")
+        if b3 == 0 or dm != (len(rec), len(rec)):
+            fail(f"level-9 members {name}: match walk launches {b3}, walk "
+                 f"and expand2 launches {dm} for {len(rec)} batches")
+        print(f"level-9 members {name} (seed {seed}, {len(data)} B, sha256 "
+              f"{sha[:16]}; {card}): blob and info equal to the CPU's; "
+              f"decompress_members gives the bytes; per-batch record {rec} "
+              f"= the CPU's; launches match walk {b3}, walk and expand2 "
+              f"{dm}; wall encode {ewall * 1e3:.1f} ms, decode "
+              f"{dwall * 1e3:.1f} ms (one call each; the first case's "
+              f"include the capture of their programs)", flush=True)
+
+
 def sharded_phase(data: bytes, card: str) -> tuple:
     """Phase 12: ShardedDeflater on SHARD_RANKS ranks of cuda:0 at the
     reference's defaults (64 KiB blocks, 8 per shard). Members mode over
     the corpus, then decompress_members on the card; stream mode over the
     first SHARD_STREAM_MB MiB; a verify=True run there whose fault hook
-    corrupts one shard. The match walk is held to its plain version on the
-    members encode's batches, the walk and the token expansion on the
-    member decodes'. Returns (match walk launches by path, its max abs err,
+    corrupts one shard; the level-9 members cases (l9_members_phase). The
+    match walk is held to its plain version on the members encode's
+    batches, the walk and the token expansion on the member decodes'.
+    Returns (match walk launches by path, its max abs err,
     windowed batches of decompress_members, walk and expand2 max abs err,
     the results phase 13 is held to: {run: (blob, info, retries, wall,
     match walk launches)}).
@@ -1671,6 +1778,8 @@ def sharded_phase(data: bytes, card: str) -> tuple:
           f"match walk launches {launches['sharded_retry']} = {want} shards "
           f"+ 1 re-encode; gzip and decompress_members give the input; wall "
           f"{rwall * 1e3:.1f} ms", flush=True)
+    stamp("12f")
+    l9_members_phase(card)
     ref = {"12a": (blob, info, [], wall, launches["sharded_members"]),
            "12d": (sblob, None, [], swall, launches["sharded_stream"]),
            "12e": (rblob, rinfo, renc.retries, rwall,

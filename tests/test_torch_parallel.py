@@ -6,13 +6,19 @@ ragged tail shard, several rounds, empty input, the checksum combine, the
 verify/fault-hook retry, and decompress_members. Tolerance: exact equality
 of blobs, member info (offsets, lengths, index dicts) and retries."""
 import gzip
+import hashlib
 import struct
+import sys
+import time
 import zlib
 
 import numpy as np
 import pytest
 import torch
 
+import chip_smoke
+from conftest import make_corpus
+from jdeflate_tpu.codec import inflate as jinf
 from jdeflate_tpu.codec import levels as jlevels
 from jdeflate_tpu.parallel import mesh as jmesh
 from jdeflate_tpu.parallel import shard as jshard
@@ -219,16 +225,26 @@ def test_verify_without_fault_is_clean(corpus, meshes):
     assert not t.retries
 
 
-def test_level9_member_index_matches_jax(corpus, meshes):
+@pytest.mark.parametrize("name", list(chip_smoke.L9_MEMBER_CASES))
+def test_level9_member_index_matches_jax(meshes, name):
     """ROADMAP C11: at levels 8-9 the splitter works in 2 KiB chunks, but
     the JAX sharded encoder builds each member's index with the 8 KiB
     default chunk, so it lists only the sub-blocks on 8 KiB seams. The port
     follows the reference: the same blobs and the same index, and each
     member's windowed batch stops short of the member's 8 KiB, the native
-    decoder doing the rest, on both blobs."""
-    bl = 4096
-    data = b"".join(corpus(k, 2048) for k in ("text", "random") * 4)
-    t, j = _pair(meshes, "members", level=9, bl=bl, bpd=2)
+    decoder doing the rest, with the JAX package's per-batch record.
+
+    ROADMAP C16: the bytes come from a generator of the case's own (seed
+    and sha256 in chip_smoke.L9_MEMBER_CASES), not from the session-scoped
+    corpus fixture, whose state depends on the tests that ran before. In
+    "match_across_seam" a match crosses a 2 KiB split seam of the second
+    member and its batch produces 4,097 bytes, on both packages."""
+    seed, sha, produced = chip_smoke.L9_MEMBER_CASES[name]
+    rng = np.random.default_rng(seed)
+    data = b"".join(make_corpus(rng, k, 2048) for k in ("text", "random") * 4)
+    assert hashlib.sha256(data).hexdigest() == sha
+    assert chip_smoke.l9_member_data(seed) == data
+    t, j = _pair(meshes, "members", level=9, bl=4096, bpd=2)
     tb, ti = t.compress(data)
     jb, ji = j.compress(data)
     assert tb == jb
@@ -236,10 +252,17 @@ def test_level9_member_index_matches_jax(corpus, meshes):
     got = [m[3]["block_bytes"] for m in ti["members"]]
     want = [m[3]["block_bytes"] for m in ji["members"]]
     assert got == want == [[0, 4096]] * 2
-    for blob, info in ((tb, ti), (jb, ji)):
-        tinf.STATS_LOG.clear()
-        assert tshard.decompress_members(blob, info, device="cpu") == data
-        assert [p for _, p, _ in tinf.STATS_LOG] == [4096, 4096]
+    records = []
+    for log, decode in (
+            (tinf.STATS_LOG,
+             lambda: tshard.decompress_members(tb, ti, device="cpu")),
+            (jinf.STATS_LOG, lambda: jshard.decompress_members(jb, ji))):
+        log.clear()
+        assert decode() == data
+        records.append([(k, int(p), int(e)) for k, p, e in log])
+    assert records[0] == records[1]
+    assert all(k == "win" and p < 8192 and e for k, p, e in records[0])
+    assert tuple(p for _, p, _ in records[0]) == produced
 
 
 def test_mesh_rules():
@@ -279,3 +302,32 @@ def test_two_cards_match_four_ranks_on_one(corpus):
         assert gzip.decompress(two) == data
         if mode == "members":
             assert tshard.decompress_members(two, ti, device="cuda:1") == data
+
+
+def seam_search(lo: int, hi: int) -> list:
+    """The port's per-batch records of the level-9 members case on
+    chip_smoke.l9_member_data(seed) for seeds lo..hi-1, at the tests' probe
+    depths: how L9_MEMBER_CASES' seeds were found. Returns the seeds where
+    a member's windowed batch produces other than 4,096 bytes."""
+    t = tshard.ShardedDeflater(mesh=tmesh.make_mesh(4, device="cpu"),
+                               level=9, block_size=4096, blocks_per_device=2,
+                               mode="members")
+    found = []
+    for seed in range(lo, hi):
+        t0 = time.perf_counter()
+        data = chip_smoke.l9_member_data(seed)
+        blob, info = t.compress(data)
+        tinf.STATS_LOG.clear()
+        assert tshard.decompress_members(blob, info, device="cpu") == data
+        rec = list(tinf.STATS_LOG)
+        print(seed, rec, f"{time.perf_counter() - t0:.2f} s", flush=True)
+        if any(p != 4096 for _, p, _ in rec):
+            found.append(seed)
+    return found
+
+
+if __name__ == "__main__":
+    # JAX_PLATFORMS=cpu PYTHONPATH=. python tests/test_torch_parallel.py LO HI
+    torch.set_num_threads(1)
+    print("seeds whose batch crosses a seam:",
+          seam_search(int(sys.argv[1]), int(sys.argv[2])))
