@@ -485,6 +485,13 @@ def profile_slice(what: str, fn) -> None:
     profile_run(f"{what} (first {PROFILE_MB} MiB)", fn, span)
 
 
+def capture_s() -> float:
+    """Seconds of the program layer's first calls so far (each an eager run
+    and a capture): the span program.capture's process total."""
+    from jdeflate_tpu_torch import trace
+    return trace.totals()["spans"].get("program.capture", 0.0)
+
+
 def one_run(fn):
     """fn() once: (result, wall on the host clock to a synchronise, device
     span from CUDA events)."""
@@ -2173,10 +2180,10 @@ def program_phase(data: bytes, card: str) -> dict:
         """fn() captured (a first run that captures, then a timed one) and
         eager (a warm run, then a timed one); fail unless the two give the
         same digest and match walk launches."""
-        st0 = dict(program.stats)
+        st0, c0 = dict(program.stats), capture_s()
         _, first, _ = one_run(fn)
         caps = program.stats["captures"] - st0["captures"]
-        cap_s = program.stats["capture_s"] - st0["capture_s"]
+        cap_s = capture_s() - c0
         lz77.match_walk.launches = 0
         res, wall, span = one_run(fn)
         n_cap = lz77.match_walk.launches
@@ -2193,7 +2200,8 @@ def program_phase(data: bytes, card: str) -> dict:
               f"span {span * 1e3:.1f} ms; eager wall {ewall * 1e3:.1f} ms, "
               f"span {espan * 1e3:.1f} ms ({ewall / wall:.2f}x); first "
               f"captured run {first * 1e3:.1f} ms with {caps} graphs "
-              f"captured in {cap_s * 1e3:.1f} ms; sha256 {dg} equal; match "
+              f"captured, first calls (eager run and capture) "
+              f"{cap_s * 1e3:.1f} ms; sha256 {dg} equal; match "
               f"walk launches {n_cap} in both", flush=True)
         return n_cap
 
@@ -2273,8 +2281,8 @@ def program_phase(data: bytes, card: str) -> dict:
         print(f"checksums per call on {mb} MiB of bytes ({card}): "
               + "; ".join(row), flush=True)
     print(f"program cache: {len(program._programs)} programs, "
-          f"{program.stats['captures']} captures in "
-          f"{program.stats['capture_s']:.1f} s, "
+          f"{program.stats['captures']} captures, first calls (eager run "
+          f"and capture) {capture_s():.1f} s, "
           f"{program.stats['replays']} replays this run", flush=True)
     return launches
 
@@ -2293,10 +2301,10 @@ def decode_program_phase(data: bytes, raw: bytes, idx: dict,
     program.COUNTED) are equal between the two paths. Printed: walls and
     spans, the programs, captures, capture seconds and replays. Then the
     engine-2 decode's host time by phase over 3 captured runs after a warm
-    one, from
-    wrapped timers around RawInflater._plan, _upload, _launch, _finish and
-    the native re-decode inside _finish (native.inflate). Returns each
-    captured run's kernel launches, by path."""
+    one, from each run's request record (trace.last_request(): the spans
+    decode.plan, decode.upload, decode.launch, decode.finish and the native
+    re-decode inside it, decode.native). Returns each captured run's kernel
+    launches, by path."""
     import collections
     import hashlib
     import torch
@@ -2305,8 +2313,8 @@ def decode_program_phase(data: bytes, raw: bytes, idx: dict,
     from jdeflate_tpu_torch.ops import expand as ex
     from jdeflate_tpu_torch.ops import expand2 as ex2
     from jdeflate_tpu_torch.ops import expand5 as ex5
+    from jdeflate_tpu_torch import trace
     from jdeflate_tpu_torch.ops import walk as wk
-    from jdeflate_tpu_torch.stream import native
 
     counted = {"walk": wk.walk_checked, "expand2": ex2.expand_tokens,
                "expand5_seed": ex5.seed_plane,
@@ -2342,10 +2350,10 @@ def decode_program_phase(data: bytes, raw: bytes, idx: dict,
             return dec.decompress(r, index=index)
         os.environ["JDT_EXPAND"] = engine
         try:
-            st0 = dict(program.stats)
+            st0, c0 = dict(program.stats), capture_s()
             _, first, _ = one_run(fn)
             caps = program.stats["captures"] - st0["captures"]
-            cap_s = program.stats["capture_s"] - st0["capture_s"]
+            cap_s = capture_s() - c0
             grew = program.stats["pool_growth"] - st0["pool_growth"]
             reps = program.stats["replays"]
             zero()
@@ -2376,8 +2384,9 @@ def decode_program_phase(data: bytes, raw: bytes, idx: dict,
               f"{wall * 1e3:.1f} ms, span {span * 1e3:.1f} ms; eager wall "
               f"{ewall * 1e3:.1f} ms, span {espan * 1e3:.1f} ms "
               f"({ewall / wall:.2f}x); first captured run "
-              f"{first * 1e3:.1f} ms with {caps} programs captured in "
-              f"{cap_s * 1e3:.1f} ms, growing their pools by {grew} B; "
+              f"{first * 1e3:.1f} ms with {caps} programs captured, first "
+              f"calls (eager run and capture) {cap_s * 1e3:.1f} ms, "
+              f"growing their pools by {grew} B; "
               f"{reps} replays in the timed run; "
               f"{len(program._programs)} programs cached "
               f"({program.stats['bytes']} B, {program.stats['evictions']} "
@@ -2385,35 +2394,31 @@ def decode_program_phase(data: bytes, raw: bytes, idx: dict,
               f"({dict(kinds)}; first erring batch {first_bad(stats)}); "
               f"launches {n_cap} in both", flush=True)
 
-    # the engine-2 decode's host time by phase
+    # the engine-2 decode's host time by phase, from its request records
     secs = collections.defaultdict(float)
-
-    def timer(k):
-        def after(a, kw, r, sec):
-            secs[k] += sec
-        return after
-
     walls = []
     dec.decompress(raw, index=idx)      # its programs back in the cache
-    with contextlib.ExitStack() as stack:
-        for k in ("_plan", "_upload", "_launch", "_finish"):
-            stack.enter_context(wrapped(I.RawInflater, k, after=timer(k)))
-        stack.enter_context(wrapped(native, "inflate",
-                                    after=timer("native")))
-        for _ in range(3):
-            got, w, _ = one_run(lambda: dec.decompress(raw, index=idx))
-            if got != data:
-                fail("phase 16: the timed engine-2 decode differs")
-            walls.append(w)
-    ms = {k: v / 3 * 1e3 for k, v in secs.items()}
+    for _ in range(3):
+        got, w, _ = one_run(lambda: dec.decompress(raw, index=idx))
+        if got != data:
+            fail("phase 16: the timed engine-2 decode differs")
+        walls.append(w)
+        for k, v in trace.last_request()["spans"].items():
+            secs[k] += v
+    ms = collections.defaultdict(float, {k: v / 3 * 1e3
+                                         for k, v in secs.items()})
     wall = statistics.mean(walls) * 1e3
     print(f"engine-2 decode of {len(data)} B, host time by phase ({card}), "
-          f"mean of 3 warm captured runs: _plan {ms['_plan']:.1f} ms; "
-          f"uploads (_upload) {ms['_upload']:.1f} ms; launch loop (_launch) "
-          f"{ms['_launch']:.1f} ms; readback with _fill (_finish without "
-          f"the native re-decode) {ms['_finish'] - ms['native']:.1f} ms; "
-          f"native re-decode {ms['native']:.1f} ms; wall {wall:.1f} ms "
-          f"(runs {[round(x * 1e3, 1) for x in walls]})", flush=True)
+          f"mean of 3 warm captured runs: decode.plan "
+          f"{ms['decode.plan']:.1f} ms; decode.upload "
+          f"{ms['decode.upload']:.1f} ms; decode.launch "
+          f"{ms['decode.launch']:.1f} ms; readback with _fill (decode.finish "
+          f"less decode.native) "
+          f"{ms['decode.finish'] - ms['decode.native']:.1f} ms; native "
+          f"re-decode (decode.native) {ms['decode.native']:.1f} ms; "
+          f"decode.inflater {ms['decode.inflater']:.1f} ms; wall "
+          f"{wall:.1f} ms (runs {[round(x * 1e3, 1) for x in walls]})",
+          flush=True)
     return found
 
 

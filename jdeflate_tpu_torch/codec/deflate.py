@@ -29,6 +29,7 @@ import functools
 import numpy as np
 import torch
 
+from .. import trace
 from ..formats import constants as C
 from ..ops import bitpack, huffman, lz77
 from ..utils import device as _device
@@ -740,7 +741,7 @@ def read_batch(handle, batch: int, nch: int):
     anchor row move. Words are u32 values in int64, so they are narrowed
     to little-endian u32 before the bytes are taken."""
     words, meta_dev, wanch_dev = handle
-    m = meta_dev.cpu().numpy()
+    m = _device.to_host(meta_dev)
     total = int(m[0])
     o = 1
     stored_h = m[o:o + batch]
@@ -752,9 +753,9 @@ def read_batch(handle, batch: int, nch: int):
     gwin = m[o:o + batch * nch].reshape(batch, nch)
     used = int(gwin.sum(axis=1).max()) if gwin.size else 0
     used = min(max(used, 1), wanch_dev.shape[1])
-    wanch = wanch_dev[:, :used].cpu().numpy()
+    wanch = _device.to_host(wanch_dev[:, :used])
     total_w = min((total + 31) // 32 + 1, words.shape[0])
-    wb = words[:total_w].cpu().numpy().astype("<u4").view(np.uint8)
+    wb = _device.to_host(words[:total_w]).astype("<u4").view(np.uint8)
     return total, wb, stored_h, startf, hdr_off, gwin, wanch
 
 
@@ -789,6 +790,7 @@ class RawDeflater:
         self.last_calls: list = []
         self.call_statics: tuple = ()
 
+    @trace.request("RawDeflater.compress")
     def compress(self, data: bytes, dictionary: bytes | None = None,
                  final: bool = True):
         """Compress to a raw DEFLATE stream. Returns (raw bytes, index).
@@ -798,6 +800,7 @@ class RawDeflater:
         be concatenated."""
         return self.finish(self.launch(data, dictionary, final))
 
+    @trace.span("encode.launch")
     def launch(self, data: bytes, dictionary: bytes | None = None,
                final: bool = True):
         """Phase 1 of compress: launch every batch's encode; nothing is
@@ -839,6 +842,7 @@ class RawDeflater:
             handles.append((b0, launch_batch(*args, *statics)))
         return n, final, handles
 
+    @trace.span("encode.finish")
     def finish(self, launched):
         """Phase 2 of compress: read back what launch() started (the small
         meta first, then only the produced words and the used prefix of

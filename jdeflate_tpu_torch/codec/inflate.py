@@ -25,11 +25,13 @@ batch whose checks fail.
 """
 from __future__ import annotations
 
+import collections
 import os
 
 import numpy as np
 import torch
 
+from .. import trace
 from ..formats import constants as C
 from ..ops import decode as dk
 from ..ops import expand as ex
@@ -47,8 +49,9 @@ HALO = C.WINDOW_SIZE
 # Dispatch log: every RawInflater.decompress appends one (kind, produced,
 # err) tuple per batch it ran ("stored"/"win"/"anchored"/"dense"). Callers
 # clear() it before the operation they want to observe; decompress only
-# appends.
-STATS_LOG: list = []
+# appends, and the log keeps the newest STATS_KEEP entries.
+STATS_KEEP = 1 << 16
+STATS_LOG: collections.deque = collections.deque(maxlen=STATS_KEEP)
 
 
 def card_bytes(stats: list) -> tuple[int, int]:
@@ -194,8 +197,11 @@ def _windows_batch(words_full, metas, row, halo, npe: int, ne: int,
                    out_cap: int, wwords: int, engine: int):
     """Cut the batch's meta row and word window on the device (one gather
     each, the size of the batch), then run its program: the program's key
-    holds only the batch's buckets, never the stream's length. Returns
-    (out, (produced, err), next_halo)."""
+    holds only the batch's buckets, never the stream's length. A device
+    `row` is read back first (indexing by a 0-d tensor reads it anyway).
+    Returns (out, (produced, err), next_halo)."""
+    if isinstance(row, torch.Tensor):
+        row = int(_device.to_host(row))
     meta = metas[:, :_meta_len(npe, ne)][row]
     words = _slice_words(words_full, meta[0], wwords)
     return program.run(_windows_program, (words, meta, halo),
@@ -436,6 +442,7 @@ class RawInflater:
             "end_bit": endbit,
         }
 
+    @trace.span("decode.plan")
     def _plan(self, raw: bytes, index: dict, dictionary: bytes, W_pad: int):
         """Host side: block headers and batch metadata. Returns (work,
         n_out) with work items ("stored", bytes), ("win", (meta, npe, nb,
@@ -604,6 +611,8 @@ class RawInflater:
             ll.reshape(-1), dl.reshape(-1)])
         return meta, npe, nb, oc, wwords, total_out, b0
 
+    @trace.request("RawInflater.decompress")
+    @trace.span("decode.inflater")
     def decompress(self, raw: bytes, index=None, dictionary: bytes = b"",
                    expected_size: int | None = None) -> bytes:
         self.last_stats = []
@@ -611,10 +620,12 @@ class RawInflater:
         if index is None:
             # foreign stream: the native inflator (or the Python referee)
             # decodes in one sequential pass
-            if native.available():
-                out, _, _ = native.inflate(raw, dictionary)
-            else:
-                out, _, _ = hi.inflate_raw(raw, dictionary)
+            with trace.span("decode.native"):
+                if native.available():
+                    out, _, _ = native.inflate(raw, dictionary)
+                else:
+                    out, _, _ = hi.inflate_raw(raw, dictionary)
+            trace.count("decode.native_bytes", len(out))
             return out
         # the whole stream uploads once; each batch cuts its bucketed word
         # window from it on the device
@@ -622,8 +633,13 @@ class RawInflater:
         work, n_out = self._plan(raw, index, dictionary, W_pad)
         inputs = self._upload(raw, work, dictionary, W_pad)
         plan, res = self._launch(work, inputs)
-        return self._finish(raw, dictionary, plan, res, n_out)
+        out = self._finish(raw, dictionary, plan, res, n_out)
+        card, stored = card_bytes(self.last_stats)
+        if len(out) > card + stored:
+            trace.count("decode.native_bytes", len(out) - card - stored)
+        return out
 
+    @trace.span("decode.upload")
     def _upload(self, raw: bytes, work: list, dictionary: bytes,
                 W_pad: int) -> dict:
         """Every host-to-device copy of one decompress, each through pinned
@@ -667,9 +683,11 @@ class RawInflater:
             up["items"].append(item)
         return up
 
+    @trace.span("decode.launch")
     def _launch(self, work: list, up: dict):
         """Phase 1: every batch, each device batch one program on a card,
-        the window chained on the device, no device-to-host read. Returns
+        the window chained on the device; the one device-to-host read is
+        each windowed batch's row index (_windows_batch). Returns
         the plan, whose entries are ("stored", bytes) or ("dev", (kind,
         out, total_out, b0)), and the (batches, 2) int64 tensor of each
         device batch's (produced, err)."""
@@ -720,6 +738,7 @@ class RawInflater:
             plan.append(("dev", (kind, o, total_out, b0)))
         return plan, res
 
+    @trace.span("decode.finish")
     def _finish(self, raw: bytes, dictionary: bytes, plan: list,
                 res: torch.Tensor, n_out: int) -> bytes:
         """Phase 2: read every device batch's (produced, err) back at once,
@@ -727,7 +746,7 @@ class RawInflater:
         first batch that failed its checks (corruption, or an index that
         does not fit the stream) re-decode natively."""
         stats_rec = self.last_stats
-        pes = res.cpu().numpy()
+        pes = _device.to_host(res)
         out = bytearray()
         di = 0
         fill = []                   # (host_offset, device_array, nbytes)
@@ -745,15 +764,16 @@ class RawInflater:
             if ee or pe != total_out:
                 self._fill(out, fill)
                 window = (dictionary[-HALO:] + bytes(out))[-HALO:]
-                if native.available():
-                    rest, _, _ = native.inflate(
-                        raw, window, start_bit=b0,
-                        out_cap=max(n_out - len(out), 1 << 12))
-                    out += rest
-                else:
-                    # the referee has no mid-stream entry: full re-decode
-                    full, _, _ = hi.inflate_raw(raw, dictionary)
-                    out = bytearray(full)
+                with trace.span("decode.native"):
+                    if native.available():
+                        rest, _, _ = native.inflate(
+                            raw, window, start_bit=b0,
+                            out_cap=max(n_out - len(out), 1 << 12))
+                    else:
+                        # the referee has no mid-stream entry: full re-decode
+                        rest, _, _ = hi.inflate_raw(raw, dictionary)
+                        out = bytearray()
+                out += rest
                 if len(out) != n_out:
                     raise errors.BadBlockError(
                         f"decode mismatch: produced={len(out)} "
@@ -770,7 +790,7 @@ class RawInflater:
         transfer."""
         if not fill:
             return
-        buf = torch.cat([oa[:nb_] for _, oa, nb_ in fill]).cpu().numpy()
+        buf = _device.to_host(torch.cat([oa[:nb_] for _, oa, nb_ in fill]))
         pos = 0
         for off, _, nb_ in fill:
             out[off:off + nb_] = buf[pos:pos + nb_].tobytes()

@@ -53,10 +53,10 @@ from __future__ import annotations
 import collections
 import contextlib
 import threading
-import time
 
 import torch
 
+from .. import trace
 from ..ops import expand, expand2, expand5, lz77, walk
 
 # kernel wrappers whose `launches` count the launches a replay makes
@@ -73,11 +73,15 @@ _lock = threading.RLock()
 # key -> Program, least recently used first
 _programs: collections.OrderedDict = collections.OrderedDict()
 _pools: dict = {}          # device -> the _Pool new captures join
-# captures made and the seconds they took (the first call's eager run
-# excluded), replays made, programs evicted, bytes the cache holds, bytes
-# the captures added to their pools: read by chip_smoke.py
-stats = {"captures": 0, "capture_s": 0.0, "replays": 0, "evictions": 0,
-         "bytes": 0, "pool_growth": 0}
+# captures made, replays made, programs evicted, bytes the cache holds,
+# bytes the captures added to their pools: read by the benchmark and
+# chip_smoke.py. A call's captures and evictions are also trace.py counters
+# of its record (program.captures, program.evictions; not its replays, a
+# count per program call that program.stats already keeps); the seconds of
+# a first call (its eager run and its capture) are the span
+# "program.capture"
+stats = {"captures": 0, "replays": 0, "evictions": 0, "bytes": 0,
+         "pool_growth": 0}
 
 
 @contextlib.contextmanager
@@ -116,7 +120,6 @@ class Program:
 
     def __init__(self, fn, inputs: tuple, statics: tuple, pool: _Pool):
         dev = inputs[0].device
-        t0 = time.perf_counter()
         with torch.cuda.device(dev):
             self.ins = tuple(torch.empty_like(x) for x in inputs)
             before = [w.launches for w in COUNTED]
@@ -143,7 +146,7 @@ class Program:
         stats["pool_growth"] += max(rise, 0)
         self.nbytes = _nbytes(self.ins)
         stats["captures"] += 1
-        stats["capture_s"] += time.perf_counter() - t0
+        trace.count("program.captures")
 
     def __call__(self, inputs: tuple) -> tuple:
         with torch.cuda.device(self.dev):
@@ -181,6 +184,7 @@ def _evict(key) -> None:
             p.pool is prog.pool for p in _programs.values()):
         del _pools[prog.dev]            # dead: no capture may join it
     stats["evictions"] += 1
+    trace.count("program.evictions")
 
 
 def _admit(dev, key) -> list:
@@ -220,21 +224,22 @@ def run(fn, inputs: tuple, statics: tuple = ()) -> tuple:
         if prog is not None:
             _programs.move_to_end(key)
             return prog(inputs)
-        res = fn(*inputs, *statics)     # warms the tables, kernels, attrs
-        dev = inputs[0].device
-        pool = _pools.get(dev)
-        if pool is None:
-            pool = _pools[dev] = _Pool()
-        try:
-            _programs[key] = Program(fn, inputs, statics, pool)
-        except BaseException:
-            if not any(p.pool is pool for p in _programs.values()):
-                del _pools[dev]         # its graph never lived
-            raise
-        if _admit(dev, key):
-            with torch.cuda.device(dev):
-                torch.cuda.empty_cache()
-        _update_bytes()
+        with trace.span("program.capture"):
+            res = fn(*inputs, *statics)     # warms tables, kernels, attrs
+            dev = inputs[0].device
+            pool = _pools.get(dev)
+            if pool is None:
+                pool = _pools[dev] = _Pool()
+            try:
+                _programs[key] = Program(fn, inputs, statics, pool)
+            except BaseException:
+                if not any(p.pool is pool for p in _programs.values()):
+                    del _pools[dev]         # its graph never lived
+                raise
+            if _admit(dev, key):
+                with torch.cuda.device(dev):
+                    torch.cuda.empty_cache()
+            _update_bytes()
         return res
 
 

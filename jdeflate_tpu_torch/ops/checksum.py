@@ -26,6 +26,7 @@ import functools
 import numpy as np
 import torch
 
+from .. import trace
 from ..codec import program
 from ..utils import device as _device
 
@@ -322,9 +323,10 @@ def _checksum(fn, data, init: int, chunk: int, front: bool, device) -> int:
     cur = sc[0]
     for k, piece in enumerate(pieces):
         cur = program.run(fn, (piece, torch.stack([cur, sc[k + 1]])))[0]
-    return int(cur)
+    return int(_device.to_host(cur))
 
 
+@trace.span("crc32")
 def crc32(data, init: int = 0, device="cuda") -> int:
     """crc32 of a byte buffer (zlib convention), computed on `device` (or on
     the device of a uint8 tensor)."""

@@ -13,6 +13,7 @@ zstrm.c:255-261). Checksums run on the stream's device.
 """
 from __future__ import annotations
 
+from .. import trace
 from ..codec.deflate import RawDeflater
 from ..codec.inflate import RawInflater
 from ..formats import headers as H
@@ -25,6 +26,8 @@ from ..utils import errors
 _FORMATS = ("raw", "zlib", "gzip")
 
 
+@trace.request("zstrm.compress")
+@trace.span("encode")
 def compress(data: bytes, format: str = "gzip", level: int = 6,
              dictionary: bytes | None = None, block_size: int = 1 << 16,
              batch: int = 16, fixed_codes: bool = False,
@@ -60,6 +63,8 @@ def compress(data: bytes, format: str = "gzip", level: int = 6,
             + H.emit_zlib_trailer(cs.adler32(data, device=dev)))
 
 
+@trace.request("zstrm.compress_with_index")
+@trace.span("encode")
 def compress_with_index(data: bytes, format: str = "gzip", level: int = 6,
                         dictionary: bytes | None = None,
                         block_size: int = 1 << 16, batch: int = 16,
@@ -106,13 +111,17 @@ def _partial_inflate_py(buf: bytes, window: bytes, start_bit: int):
 
 def _seq_inflate(body: bytes, dictionary: bytes = b""):
     """Sequential one-pass decode of a raw stream -> (out, end_bit)."""
-    if native.available():
-        out, _, endbit = native.inflate(body, dictionary)
-    else:
-        out, _, endbit = hi.inflate_raw(body, dictionary)
+    with trace.span("decode.native"):
+        if native.available():
+            out, _, endbit = native.inflate(body, dictionary)
+        else:
+            out, _, endbit = hi.inflate_raw(body, dictionary)
+    trace.count("decode.native_bytes", len(out))
     return out, endbit
 
 
+@trace.request("zstrm.decompress")
+@trace.span("decode")
 def decompress(data: bytes, format: str = "auto",
                dictionary: bytes | None = None, verify: bool = True,
                index=None, header_len: int | None = None,

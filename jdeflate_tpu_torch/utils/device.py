@@ -9,6 +9,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import trace
 from . import errors
 
 
@@ -32,3 +33,12 @@ def upload(arr: np.ndarray, dev: torch.device) -> torch.Tensor:
     if dev.type != "cuda":
         return t
     return t.pin_memory().to(dev, non_blocking=True)
+
+
+def to_host(t: torch.Tensor):
+    """A tensor's values on the host: from a card, one blocking
+    device-to-host read. A 0-d tensor comes back as a Python number
+    (item(), the cheaper read), any other as a numpy array. Every such read
+    of the codec paths goes through here, counted as d2h.calls."""
+    trace.count("d2h.calls")
+    return t.item() if t.dim() == 0 else t.cpu().numpy()
