@@ -4,7 +4,7 @@ Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
-It builds the six CUDA kernels from jdeflate_tpu_torch/csrc (all nvcc
+It builds the seven CUDA kernels from jdeflate_tpu_torch/csrc (all nvcc
 processes at once), then drives the port's paths on a 32 MiB Silesia-like
 corpus. Decode: the corpus compressed by zlib at level 6, indexed by
 RawInflater.build_index and decoded on the GPU through the window-walk
@@ -12,7 +12,12 @@ kernel (with the decode's checks in its epilogue) and the token-expansion
 kernel, raw and gzip-framed (a batch may err only where its last
 pseudo-entry's word segment clamps, ROADMAP C5, and the err decisions must
 be the reference's, E2_ERRS); a tampered window anchor must err and fall
-back to the native decoder. Encode:
+back to the native decoder; the gzip-framed decode and the level-6 gzip
+encode below must each launch the crc32 kernel (csrc/crc32.cu) once.
+crc32: the kernel on 1 MiB and 51,220,480 B of seeded random bytes, from
+bytes and from a device tensor, must equal zlib.crc32 and the plain
+program chain on the card; its time, device time, bound and the plain
+chain's time go in its row. Encode:
 compress_with_index at level 6 with 64 KiB blocks in batches of 16 (the
 bench's round trip) through the match-walk kernel; the gzip stream must
 inflate in zlib and in the port's decoder with every windowed batch at err
@@ -63,7 +68,7 @@ and under program.eager(); streams, indexes and window anchors must be
 byte-equal (sha256) and the match walk's launches equal, and
 RawDeflater.launch (Phase 1) must make no synchronising call under
 torch.cuda.set_sync_debug_mode("error"); walls, graphs captured, capture
-times and the checksums' time per call are printed. Decode programs
+times and adler32's time per call are printed. Decode programs
 (phase 16): every decode batch runs as a captured program on the card
 (each earlier decode did); with the cache cleared, engine 2 and v5 on the
 32 MiB zlib-6 stream and the anchored and dense decodes of its first 8 MiB
@@ -103,6 +108,7 @@ import contextlib
 import gzip
 import json
 import os
+import random
 import statistics
 import struct
 import subprocess
@@ -123,6 +129,8 @@ LEVELS_KB = 256               # phase 14a: levels 1 and 9, card and CPU
 BENCH_S = 600                 # phase 14b: the bench subprocess's limit
 PROGRAM_MB = 8                # phase 15: levels 1 and 6, ZStream, sharded
 PROGRAM_L9_MB = 2             # phase 15: level 9
+# crc32 kernel: a round trip's 1 MiB payload, the largest Silesia file
+CRC_SIZES = (1 << 20, 51_220_480)
 _T0 = time.perf_counter()
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate (data sheet)
 BATCH = dict(max_batch_bits=1 << 25, max_batch_blocks=256,
@@ -310,12 +318,14 @@ def timed_runs(fn, check):
     return statistics.median(walls), statistics.median(spans), walls
 
 
-def encode_phase(data: bytes, zlib6_len: int, card: str) -> dict:
+def encode_phase(data: bytes, zlib6_len: int, card: str) -> tuple:
     """Phase 7: the level-6 encoder on the card. Returns the match-walk
-    kernel's entry of the kernels line."""
+    kernel's entry of the kernels line and the crc32 kernel's launches in
+    the gzip encode (one: the CRC-32 of the input)."""
     import torch
     from jdeflate_tpu_torch.codec import deflate as D
     from jdeflate_tpu_torch.codec import inflate as I
+    from jdeflate_tpu_torch.ops import checksum as cs
     from jdeflate_tpu_torch.ops import lz77
     from jdeflate_tpu_torch.stream import zstrm
     enc_kw = dict(level=6, block_size=1 << 16, batch=16)
@@ -323,14 +333,18 @@ def encode_phase(data: bytes, zlib6_len: int, card: str) -> dict:
 
     # ---- 7a. main path: compress_with_index -> decompress, on the card
     lz77.match_walk.launches = 0
+    cs.crc32_kernel.launches = 0
     t0 = time.perf_counter()
     gz, idx, hl = zstrm.compress_with_index(data, format="gzip",
                                             device="cuda", **enc_kw)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     launches = lz77.match_walk.launches
+    crc_launches = cs.crc32_kernel.launches
     if launches != nbatch:
         fail(f"match walk launches {launches} != {nbatch} batches")
+    if crc_launches != 1:
+        fail(f"crc32 kernel launches in the gzip encode {crc_launches} != 1")
     if zlib.decompress(gz, 31) != data:
         fail("zlib does not inflate the port's gzip stream to the corpus")
     I.STATS_LOG.clear()
@@ -358,8 +372,9 @@ def encode_phase(data: bytes, zlib6_len: int, card: str) -> dict:
     print(f"encode main path: {len(data)} B -> {raw_len} B raw "
           f"(ratio {len(data) / raw_len:.4f}; zlib level 6 {zlib6_len} B, "
           f"{raw_len / zlib6_len:.4f}x zlib), {len(idx['block_bits'])} index "
-          f"entries, match walk launches {launches} = batches; first call "
-          f"{first_s:.2f} s; zlib inflate, own windowed decode "
+          f"entries, match walk launches {launches} = batches, crc32 "
+          f"kernel launches {crc_launches}; first call {first_s:.2f} s; "
+          f"zlib inflate, own windowed decode "
           f"({kinds.count('win')} win batches at err 0; the batches cover "
           f"{dev_bytes} B, the native decoder the other "
           f"{len(data) - dev_bytes} B) and a FEXTRA member of the first MiB "
@@ -429,7 +444,7 @@ def encode_phase(data: bytes, zlib6_len: int, card: str) -> dict:
             "ms": statistics.mean(ms), "dev_ms": dev_ms,
             "plain_ms": statistics.mean(plain),
             "bound_ms": statistics.mean(bound), "bound_by": "bytes",
-            "library_ms": None}
+            "library_ms": None}, crc_launches
 
 
 def _mean(xs):
@@ -2160,8 +2175,8 @@ def program_phase(data: bytes, card: str) -> dict:
     torch.cuda.set_sync_debug_mode("error") in both paths, after a warm
     run. Printed: each path's wall and device span, the graphs captured and
     their capture time (in the first run), the device busy share of the
-    level-6 encode of PROFILE_MB MiB in both paths, and crc32's and
-    adler32's time per call on 1 MiB and 8 MiB in both paths. Returns B3's
+    level-6 encode of PROFILE_MB MiB in both paths, and adler32's time
+    per call on 1 MiB and 8 MiB in both paths. Returns B3's
     launches by captured run."""
     import hashlib
     import torch
@@ -2262,24 +2277,19 @@ def program_phase(data: bytes, card: str) -> dict:
 
     for mb in (1, 8):
         buf = data[:mb << 20]
-        row = []
-        for name, fn, ref in (("crc32", cs.crc32, zlib.crc32),
-                              ("adler32", cs.adler32, zlib.adler32)):
-            if fn(buf) != ref(buf):
-                fail(f"phase 15: {name} of {mb} MiB differs from zlib's")
-            per = []
-            for ctx in (contextlib.nullcontext, program.eager):
-                with ctx():
-                    fn(buf)
-                    torch.cuda.synchronize()
-                    t0 = time.perf_counter()
-                    for _ in range(5):
-                        fn(buf)
-                    per.append((time.perf_counter() - t0) / 5 * 1e3)
-            row.append(f"{name} captured {per[0]:.3f} ms, eager "
-                       f"{per[1]:.3f} ms")
-        print(f"checksums per call on {mb} MiB of bytes ({card}): "
-              + "; ".join(row), flush=True)
+        if cs.adler32(buf) != zlib.adler32(buf):
+            fail(f"phase 15: adler32 of {mb} MiB differs from zlib's")
+        per = []
+        for ctx in (contextlib.nullcontext, program.eager):
+            with ctx():
+                cs.adler32(buf)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(5):
+                    cs.adler32(buf)
+                per.append((time.perf_counter() - t0) / 5 * 1e3)
+        print(f"adler32 per call on {mb} MiB of bytes ({card}): captured "
+              f"{per[0]:.3f} ms, eager {per[1]:.3f} ms", flush=True)
     print(f"program cache: {len(program._programs)} programs, "
           f"{program.stats['captures']} captures, first calls (eager run "
           f"and capture) {capture_s():.1f} s, "
@@ -2584,12 +2594,77 @@ def max_abs_err(got, want) -> int:
     return err
 
 
+def crc32_phase(card: str, path: dict) -> dict:
+    """The crc32 kernel (csrc/crc32.cu) at CRC_SIZES of seeded random
+    bytes: crc32 from bytes and from a device tensor, and the kernel's own
+    result, must equal zlib.crc32; then its time per launch (CUDA events
+    over 50 back-to-back launches), its device time (profiler), the bound
+    (n over 3.35 TB/s), the plain program chain on the card (crc32's route
+    before the kernel) and the whole crc32 call from bytes against that
+    route's call (host clock, median of 20: pinned copy, upload, launch,
+    readback). Returns the kernel's row: `launches` and `path_launches`
+    are the main path's (`path`: the gzip decode's and the gzip encode's
+    launches, each counted from 0 around its call), `check_launches` this
+    phase's own checking calls."""
+    import torch
+    from jdeflate_tpu_torch.ops import checksum as cs
+
+    def plain(x):
+        return cs._checksum(cs._crc32_program, x, 0, cs._CRC_CHUNK, True,
+                            "cuda")
+
+    def call_ms(fn, x):
+        fn(x)
+        secs = []
+        for _ in range(20):
+            t0 = time.perf_counter()
+            fn(x)
+            secs.append(time.perf_counter() - t0)
+        return statistics.median(secs) * 1e3
+
+    row = {"name": "crc32", "route": "cuda",
+           "source": "jdeflate_tpu_torch/csrc/crc32.cu",
+           "replaces": None, "sizes": list(CRC_SIZES),
+           "launches": path["gzip_decode"], "path_launches": dict(path),
+           "check_launches": 0, "max_abs_err": 0, "ms": [], "dev_ms": [], "plain_ms": [],
+           "bound_ms": [], "bound_by": "bytes", "library_ms": None,
+           "call_ms": [], "plain_call_ms": []}
+    for n in CRC_SIZES:
+        data = random.Random(n).randbytes(n)
+        dev = torch.frombuffer(bytearray(data), dtype=torch.uint8).cuda()
+        want = zlib.crc32(data)
+        before = cs.crc32_kernel.launches
+        got = (cs.crc32(data), cs.crc32(dev),
+               int(cs.crc32_kernel(dev).item()) & 0xFFFFFFFF, plain(dev))
+        row["check_launches"] += cs.crc32_kernel.launches - before
+        if any(g != want for g in got):
+            fail(f"crc32 of {n} B: bytes, tensor, kernel, plain "
+                 f"{[hex(g) for g in got]} != zlib's {want:#x}")
+        row["ms"].append(gpu_ms(lambda: cs.crc32_kernel(dev), 50))
+        row["dev_ms"].append(device_ms(lambda: cs.crc32_kernel(dev),
+                                       ("crc32_kernel",), 20))
+        row["plain_ms"].append(gpu_ms(lambda: plain(dev), 5))
+        row["bound_ms"].append(n / HBM_BYTES_PER_S * 1e3)
+        row["call_ms"].append(call_ms(cs.crc32, data))
+        row["plain_call_ms"].append(call_ms(plain, data))
+        print(f"crc32 ({card}) on {n} B: = zlib's; "
+              f"{row['ms'][-1]:.4f} ms/launch, device "
+              f"{row['dev_ms'][-1]:.4f} ms/launch, bound "
+              f"{row['bound_ms'][-1]:.4f} ms "
+              f"({100 * row['bound_ms'][-1] / row['dev_ms'][-1]:.1f}% of "
+              f"the roofline); plain program chain {row['plain_ms'][-1]:.3f}"
+              f" ms; a call from bytes {row['call_ms'][-1]:.3f} ms, the "
+              f"plain route's {row['plain_call_ms'][-1]:.3f} ms", flush=True)
+    return row
+
+
 def main() -> None:
     try:
         import torch
         from jdeflate_tpu_torch.codec import inflate as I
         from jdeflate_tpu_torch.formats import headers as H
         from jdeflate_tpu_torch.ops import _cuda
+        from jdeflate_tpu_torch.ops import checksum as cs
         from jdeflate_tpu_torch.ops import expand2 as ex2
         from jdeflate_tpu_torch.ops import walk as wk
         from jdeflate_tpu_torch.stream import native, zstrm
@@ -2608,7 +2683,7 @@ def main() -> None:
           f"cuda {torch.version.cuda}", flush=True)
     t0 = time.perf_counter()
     built = _cuda.build(["walk", "expand", "lz77walk", "expand5seed",
-                         "expand5resolve", "expand1"])
+                         "expand5resolve", "expand1", "crc32"])
     build_s = time.perf_counter() - t0
     for name, (secs, log) in built.items():
         regs = [ln.strip() for ln in log.splitlines() if "registers" in ln]
@@ -2669,10 +2744,15 @@ def main() -> None:
              f"({len(data) - sum(p for _, p, _ in stats[:-1])} B)"
              if c5 else "none"), flush=True)
     print(f"decode output: {card_share([stats], len(data))}", flush=True)
+    cs.crc32_kernel.launches = 0
     outg = zstrm.decompress(gz, index=idx, header_len=hl, device="cuda")
+    crc_dec = cs.crc32_kernel.launches
     if outg != data:
         fail("gzip decode differs from the corpus")
-    print("gzip-framed decode with CRC32 trailer check: ok", flush=True)
+    if crc_dec != 1:
+        fail(f"crc32 kernel launches in the gzip decode {crc_dec} != 1")
+    print(f"gzip-framed decode with CRC32 trailer check: ok; crc32 kernel "
+          f"launches {crc_dec}", flush=True)
 
     # ---- 4. each kernel against its plain version, on the card. Every
     # captured batch is decoded again on its own, which gives its engine-2
@@ -2780,7 +2860,10 @@ def main() -> None:
     profile_run("decode", lambda: dec.decompress(raw, index=idx), span)
 
     stamp("encode phase")
-    enc_kernel = encode_phase(data, len(raw), card)
+    enc_kernel, crc_enc = encode_phase(data, len(raw), card)
+    stamp("crc32 phase")
+    crc_kernel = crc32_phase(card, {"gzip_decode": crc_dec,
+                                    "gzip_encode": crc_enc})
     stamp("v5 phase")
     v5_kernels = v5_phase(dec, raw, data, idx, e2_errs, card)
     stamp("anchored phase")
@@ -2840,6 +2923,7 @@ def main() -> None:
         enc_kernel,
         *v5_kernels,
         anch_kernel,
+        crc_kernel,
     ]
     # phase 16's captured decodes: each kernel's launches, through replays
     for k in kernels:

@@ -2,7 +2,7 @@
 GF(2) combine.
 
 Same algebra as jdeflate_tpu/ops/checksum.py, which computes these in XLA
-(no Pallas kernel), so here they are plain PyTorch:
+(no Pallas kernel):
   - adler32: per-chunk weighted and unweighted byte sums, folded mod 65521.
   - crc32 (reflected poly 0xEDB88320): each chunk's raw CRC is GF(2)-linear
     in the chunk's bits, so it is the XOR of per-bit constants selected by
@@ -10,9 +10,13 @@ Same algebra as jdeflate_tpu/ops/checksum.py, which computes these in XLA
     (raw(A||B) = M_len(B) raw(A) ^ raw(B)).
   - crc32_combine / adler32_combine: host-side scalars.
 
-Each runs as a captured program per padded size (codec/program.py); a
-size above 1 MiB runs the 1 MiB program piece by piece, chaining the
-running value through its init argument, so one program serves them all.
+On a card crc32 is one hand-written kernel, csrc/crc32.cu (crc32_kernel):
+the same algebra over 16 KiB spans, slice-by-8 within a thread's segment.
+Everything else is plain PyTorch: adler32 everywhere and crc32 on the CPU
+run as a captured program per padded size (codec/program.py; the CPU
+never captures); a size above 1 MiB runs the 1 MiB program piece by
+piece, chaining the running value through its init argument, so one
+program serves them all.
 
 Word arithmetic runs in int64 masked to 32 bits (PyTorch has no u32
 shifts on the CPU), except over the data itself: crc32's per-bit pass
@@ -21,6 +25,7 @@ neither widens the data to int64.
 """
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import numpy as np
@@ -36,6 +41,9 @@ _M32 = 0xFFFFFFFF
 _ADLER_CHUNK = 512
 _CRC_CHUNK = 256        # bytes per chunk
 _PIECE = 1 << 20        # the largest padded size one program takes
+_THREADS = 256          # csrc/crc32.cu: threads a block (kThreads)
+_LOG_SEG = 6            # and bytes a thread (kSeg = 2^6)
+_SPAN = _THREADS << _LOG_SEG    # bytes a block (kSpan)
 
 
 @functools.lru_cache(maxsize=None)
@@ -57,15 +65,9 @@ def _crc_tables() -> np.ndarray:
 def _gf2_matmul(a: np.ndarray, b: np.ndarray) -> np.ndarray:
     """Product of two GF(2) 32x32 matrices, each stored as 32 uint32 columns
     (column j of the result = a applied to column j of b)."""
-    out = np.zeros(32, dtype=np.uint32)
-    for j in range(32):
-        v = b[j]
-        acc = np.uint32(0)
-        for k in range(32):
-            if (int(v) >> k) & 1:
-                acc ^= a[k]
-        out[j] = acc
-    return out
+    bits = (b[:, None] >> np.arange(32, dtype=np.uint32)) & 1
+    return np.bitwise_xor.reduce(np.where(bits > 0, a[None, :], 0),
+                                 axis=1).astype(np.uint32)
 
 
 @functools.lru_cache(maxsize=None)
@@ -326,11 +328,93 @@ def _checksum(fn, data, init: int, chunk: int, front: bool, device) -> int:
     return int(_device.to_host(cur))
 
 
+def _weights(count: int, log_step: int) -> np.ndarray:
+    """(32, count) u32: column t holds the 32 columns of the matrix that
+    advances a raw CRC state over (count - 1 - t) * 2^log_step zero
+    bytes (column-major, so that neighbouring threads read neighbouring
+    words)."""
+    step = np.array(_shift_matrix_pow2(log_step), np.uint32)
+    out = np.empty((count, 32), np.uint32)
+    out[-1] = np.uint32(1) << np.arange(32, dtype=np.uint32)   # identity
+    for t in range(count - 2, -1, -1):
+        out[t] = _gf2_matmul(step, out[t + 1])
+    return out.T
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel_tables(threads: int = _THREADS,
+                   log_seg: int = _LOG_SEG) -> np.ndarray:
+    """What csrc/crc32.cu reads, as int32 bit patterns of u32 values: the
+    slice-by-8 tables (8 x 256); the matrices advancing a raw CRC state
+    over 2^k zero bytes for k < 64, as 32 columns each; each thread's
+    weight within a block (over the segments after its own) and within the
+    fold (over the spans after its own), as _weights. The defaults are the
+    kernel's block shape."""
+    pow2 = [_shift_matrix_pow2(k) for k in range(64)]
+    log_span = log_seg + threads.bit_length() - 1
+    return np.concatenate([_crc_tables().reshape(-1),
+                           np.array(pow2, np.uint32).reshape(-1),
+                           _weights(threads, log_seg).reshape(-1),
+                           _weights(threads, log_span).reshape(-1)]
+                          ).view(np.int32)
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel_tables_on(dev: torch.device) -> torch.Tensor:
+    return torch.as_tensor(_kernel_tables(), device=dev)
+
+
+def crc32_kernel(data: torch.Tensor, init: int = 0) -> torch.Tensor:
+    """crc32 of a non-empty uint8 CUDA tensor (zlib convention, chained
+    from init) by csrc/crc32.cu, read where it lies: a view at any byte
+    offset needs no copy. Returns a 0-d int32 tensor on the card holding
+    the u32 bit pattern; nothing is read back. Counts its launches in
+    crc32_kernel.launches and in the open request's crc32.kernel."""
+    from . import _cuda
+    dev = data.device
+    n = data.numel()
+    if dev.type != "cuda" or n == 0:
+        raise ValueError(f"crc32_kernel: want a non-empty CUDA tensor, got "
+                         f"{n} B on {dev}")
+    _cuda.check_tensor(data, "data", torch.uint8, dev, (n,))
+    ptr = data.data_ptr()
+    body = ((ptr & 15) + n) & ~15
+    spans = max(1, -(-body // _SPAN))
+    fn = _cuda.entry("crc32", "jd_crc32",
+                     [ctypes.c_void_p, ctypes.c_int64, ctypes.c_uint32,
+                      ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+                      ctypes.c_void_p])
+    # the result, the ticket, one state per block
+    scratch = torch.empty(2 + spans, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        rc = fn(ptr, n, init & _M32, _kernel_tables_on(dev).data_ptr(),
+                scratch.data_ptr(), spans, _cuda.stream_ptr())
+    _cuda.check(rc, "crc32 kernel launch")
+    crc32_kernel.launches += 1
+    trace.count("crc32.kernel")
+    return scratch[0]
+
+
+crc32_kernel.launches = 0
+
+
 @trace.span("crc32")
 def crc32(data, init: int = 0, device="cuda") -> int:
     """crc32 of a byte buffer (zlib convention), computed on `device` (or on
-    the device of a uint8 tensor)."""
-    return _checksum(_crc32_program, data, init, _CRC_CHUNK, True, device)
+    the device of a uint8 tensor): on a card by crc32_kernel (bytes go up
+    in one pinned copy), on the CPU by the plain program."""
+    tensor = isinstance(data, torch.Tensor)
+    if (data.numel() if tensor else len(data)) == 0:
+        return init & _M32
+    dev = data.device if tensor else _device.resolve(device)
+    if dev.type == "cpu":
+        return _checksum(_crc32_program, data, init, _CRC_CHUNK, True, device)
+    if tensor:
+        # a strided view is copied once; a contiguous one is read in place
+        flat = data.reshape(-1).to(torch.uint8).contiguous()
+    else:
+        flat = _device.upload(np.frombuffer(memoryview(data), np.uint8), dev)
+    return int(_device.to_host(crc32_kernel(flat, init))) & _M32
 
 
 def adler32(data, init: int = 1, device="cuda") -> int:

@@ -21,8 +21,9 @@ through codec/program.py) on the CPU, and the bounded program cache.
   a plain int32 sum of the bytes overflows.
 - The cache's eviction order, pool retirement and accounting, with stub
   programs and pools of stated sizes.
-- On a card (marker cuda): crc32 over 2 to 64 MiB in 1 MiB steps keeps
-  the rise of torch.cuda.memory_reserved under 2 GiB; a dead graph's
+- On a card (marker cuda): crc32 over 2 to 64 MiB in 1 MiB steps, one
+  kernel launch each and no program cached, keeps the rise of
+  torch.cuda.memory_reserved under 2 GiB; a dead graph's
   private pool stays reserved until torch.cuda.empty_cache(); each decode
   branch captured equals eager, also with a budget so small that the
   programs evict each other.
@@ -384,21 +385,24 @@ def _need_card():
 @pytest.mark.cuda
 def test_crc32_sweep_keeps_the_reserve_bounded():
     """crc32 of every size from 2 to 64 MiB in 1 MiB steps (63 padding
-    buckets): the rise of memory_reserved stays under 2 GiB, every value
-    is zlib's, and the buckets above 1 MiB share one program."""
+    buckets of the plain program): the rise of memory_reserved stays
+    under 2 GiB, every value is zlib's, and each call is one launch of
+    the crc32 kernel, which caches no program."""
     _need_card()
     program.clear()
     torch.cuda.synchronize()
     data = np.random.default_rng(2).integers(0, 256, 64 << 20, np.uint8)
     dev = torch.from_numpy(data).cuda()
     base = torch.cuda.memory_reserved()
+    before = cs.crc32_kernel.launches
     rise = 0
     for mb in range(2, 65):
         n = mb << 20
         assert cs.crc32(dev[:n - 1]) == zlib.crc32(data[:n - 1])
         rise = max(rise, torch.cuda.memory_reserved() - base)
     assert rise < 2 << 30, rise
-    assert sum(k[1] is cs._crc32_program for k in program._programs) == 1
+    assert cs.crc32_kernel.launches == before + 63
+    assert not any(k[1] is cs._crc32_program for k in program._programs)
 
 
 @pytest.mark.cuda
