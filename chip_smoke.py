@@ -65,7 +65,9 @@ programs cleared, RawDeflater at levels 1, 6 and 9, ZStream("deflate")
 and ShardedDeflater (members and stream, four ranks of cuda:0) run as
 captured CUDA graphs (the card's default, which every earlier phase ran)
 and under program.eager(); streams, indexes and window anchors must be
-byte-equal (sha256) and the match walk's launches equal, and
+byte-equal (sha256) and the match walk's launches equal, each level's
+first batch through its two programs (match stage, coding stages) must
+equal encode_batch in one eager call, its stage times are printed, and
 RawDeflater.launch (Phase 1) must make no synchronising call under
 torch.cuda.set_sync_debug_mode("error"); walls, graphs captured, capture
 times and adler32's time per call are printed. Decode programs
@@ -2171,6 +2173,10 @@ def program_phase(data: bytes, card: str) -> dict:
     cuda:0 over the first PROGRAM_MB MiB: in each, the stream (blob), the
     index and its window anchors are byte-equal (sha256) between the two
     paths, and so are the match walk's launches (replays count theirs).
+    Every encode batch is two programs, the match stage and the coding
+    stages: at each level the first batch's two-stage handle equals
+    encode_batch in one eager call, and each level prints its captured
+    run's encode.match_ns and encode.code_ns per MiB (the request record).
     Phase 1 of RawDeflater (launch) runs under
     torch.cuda.set_sync_debug_mode("error") in both paths, after a warm
     run. Printed: each path's wall and device span, the graphs captured and
@@ -2180,6 +2186,7 @@ def program_phase(data: bytes, card: str) -> dict:
     launches by captured run."""
     import hashlib
     import torch
+    from jdeflate_tpu_torch import trace
     from jdeflate_tpu_torch.codec import deflate as D
     from jdeflate_tpu_torch.codec import program
     from jdeflate_tpu_torch.ops import checksum as cs
@@ -2230,6 +2237,25 @@ def program_phase(data: bytes, card: str) -> dict:
             f"RawDeflater level {level}, {mb} MiB",
             lambda: enc.compress(part),
             lambda r: (digest(r[0]), digest(r[1]), digest(r[1]["win"])))
+        enc.capture_calls = True
+        enc.compress(part)
+        stage = trace.last_request()["counters"]
+        enc.capture_calls = False
+        statics = enc.call_statics
+        two = D.launch_batch(*enc.last_calls[0], *statics)[:3]
+        with program.eager():
+            one = D.batch_handle(D.encode_batch(*enc.last_calls[0], *statics))
+        if not all(torch.equal(a, b) for a, b in zip(two, one, strict=True)):
+            fail(f"level {level}: the two-stage batch differs from "
+                 f"encode_batch in one call")
+        if not all(stage.get(k, 0) > 0 for k in ("encode.match_ns",
+                                                 "encode.code_ns")):
+            fail(f"level {level}: no stage times in the record: {stage}")
+        print(f"level {level}: two-stage batch equals encode_batch in one "
+              f"call; captured run encode.match_ns "
+              f"{stage['encode.match_ns'] / 1e6 / mb:.2f} ms/MiB, "
+              f"encode.code_ns {stage['encode.code_ns'] / 1e6 / mb:.2f} "
+              f"ms/MiB", flush=True)
         # Phase 1 alone, warm, with every synchronising CUDA call an error
         for mode in ("captured", "eager"):
             with program.eager() if mode == "eager" \

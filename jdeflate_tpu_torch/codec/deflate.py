@@ -329,20 +329,57 @@ def _split_dp(Pl, Pd, nch: int, c0=_SPLIT_HDR_C0, c1=_SPLIT_HDR_C1):
     return start
 
 
+def _batch_rows(data: torch.Tensor, start_block, total_len, dict_len,
+                final_block, bl: int, batch: int):
+    """(block_len, valid_from, bfinal, ext) of one batch: each block's live
+    length, the first byte of its row that holds history, its BFINAL flag
+    (int64), and its row of `data` (HALO history + the block + PAD), (batch,
+    HALO + bl + PAD) u8."""
+    dev = data.device
+    bidx = start_block + torch.arange(batch, dtype=_I64, device=dev)
+    starts = bidx * bl
+    block_len = torch.clamp(total_len - starts, 0, bl)
+    avail = torch.clamp(starts + dict_len, max=HALO)
+    valid_from = HALO - avail
+    bfinal = (bidx == final_block).to(_I64)
+
+    # one slice per block; starts clamp into the buffer as dynamic_slice does
+    rowlen = HALO + bl + PAD
+    s0 = torch.clamp(starts, 0, data.shape[0] - rowlen)
+    ext = data[s0[:, None] + torch.arange(rowlen, dtype=_I64,
+                                          device=dev)[None, :]]
+    return block_len, valid_from, bfinal, ext
+
+
+def match_batch(data: torch.Tensor, start_block, total_len, dict_len,
+                final_block, bl: int, batch: int, level: int):
+    """The match stage of encode_batch: the best match per position of each
+    block, (length, dist), (batch, bl) int64 (ops/lz77.py
+    find_matches_batch at the level's probe depth)."""
+    cfg = levels_mod.get_level(level)
+    block_len, valid_from, _, ext = _batch_rows(
+        data, start_block, total_len, dict_len, final_block, bl, batch)
+    return lz77.find_matches_batch(
+        ext, block_len, valid_from, HALO, bl, PAD, max(cfg.probes, 1),
+        ext_top=cfg.ext_top, ext_rounds=cfg.ext_rounds, rescue=cfg.rescue,
+        probe_words=cfg.probe_words, ext_mdiv=cfg.ext_mdiv)
+
+
 def encode_batch(data: torch.Tensor, start_block: int, total_len: int,
                  dict_len: int, final_block: int, bl: int, batch: int,
                  level: int, num_words: int, fixed_codes: bool = False,
                  stage: str = ""):
     """Encode `batch` consecutive blocks of `data` into one bit-contiguous
     DEFLATE fragment (each block adaptively split into sub-blocks); the
-    port of the JAX package's encode_batch_impl.
+    port of the JAX package's encode_batch_impl: match_batch, then
+    code_batch on its result.
 
     data: (HALO + N_padded + PAD,) u8 on the encode device: input with a
       HALO-byte history prefix (zeros or preset dictionary) and PAD zeros.
     start_block, total_len, dict_len, final_block: ints, or 0-d int64
       tensors on data's device, as the reference's traced scalars
-      (final_block gets BFINAL); the captured program passes tensors, so
-      that no batch's values are baked into it.
+      (final_block gets BFINAL); the captured programs pass tensors, so
+      that no batch's values are baked into them.
     stage: when set, return that stage's intermediate values ("match",
       "walk", "freqs", "split", "entropy", "codes", "items", "stored",
       "pack", "offsets"), as the reference does.
@@ -351,6 +388,23 @@ def encode_batch(data: torch.Tensor, start_block: int, total_len: int,
     (batch,), ntok, start_flags (batch, nch), hdr_off (batch, nch), gwin
     (batch, nch), wanch (batch, A_BLK), use_stored (batch,)), on the device.
     """
+    length, dist = match_batch(data, start_block, total_len, dict_len,
+                               final_block, bl, batch, level)
+    if stage == "match":
+        return length, dist
+    return code_batch(data, start_block, total_len, dict_len, final_block,
+                      length, dist, bl, batch, level, num_words, fixed_codes,
+                      stage)
+
+
+def code_batch(data: torch.Tensor, start_block, total_len, dict_len,
+               final_block, length: torch.Tensor, dist: torch.Tensor,
+               bl: int, batch: int, level: int, num_words: int,
+               fixed_codes: bool = False, stage: str = ""):
+    """The coding stages of encode_batch, from match_batch's (length, dist)
+    of the same batch: the parse, the match walk, frequencies, the split,
+    the trees, the pack and the window anchors. Arguments and result as
+    encode_batch's (stage from "walk" on)."""
     cfg = levels_mod.get_level(level)
     dev = data.device
     nch = _nch(bl, cfg.chunk)
@@ -368,25 +422,9 @@ def encode_batch(data: torch.Tensor, start_block: int, total_len: int,
     def ar(n):
         return torch.arange(n, dtype=_I64, device=dev)
 
-    bidx = start_block + ar(batch)
-    starts = bidx * bl
-    block_len = torch.clamp(total_len - starts, 0, bl)
-    avail = torch.clamp(starts + dict_len, max=HALO)
-    valid_from = HALO - avail
-    bfinal = (bidx == final_block).to(_I64)
+    block_len, _, bfinal, ext = _batch_rows(
+        data, start_block, total_len, dict_len, final_block, bl, batch)
 
-    # one slice per block; starts clamp into the buffer as dynamic_slice does
-    rowlen = HALO + bl + PAD
-    s0 = torch.clamp(starts, 0, data.shape[0] - rowlen)
-    ext = data[s0[:, None] + ar(rowlen)[None, :]]
-
-    # ---- batch-flat token pipeline ----
-    length, dist = lz77.find_matches_batch(
-        ext, block_len, valid_from, HALO, bl, PAD, max(cfg.probes, 1),
-        ext_top=cfg.ext_top, ext_rounds=cfg.ext_rounds, rescue=cfg.rescue,
-        probe_words=cfg.probe_words, ext_mdiv=cfg.ext_mdiv)
-    if stage == "match":
-        return length, dist
     take = lz77.parse_take(length, dist, block_len, cfg.lazy,
                            cfg.good_length)
     # the sequential parse via the match walk (kernel on a CUDA device)
@@ -711,37 +749,76 @@ def batch_handle(res):
     return words, meta, wanch
 
 
-def _encode_handle(data, scalars, bl: int, batch: int, level: int,
-                   num_words: int, fixed_codes: bool):
-    """batch_handle(encode_batch(...)) with the per-batch scalars
-    (start_block, total_len, dict_len, final_block) read from `scalars`, a
-    (4,) int64 tensor on data's device: the function that runs as one
-    captured program per shape."""
-    return batch_handle(encode_batch(data, *scalars.unbind(), bl, batch,
-                                     level, num_words, fixed_codes))
+def _match_handle(data, scalars, bl: int, batch: int, level: int):
+    """match_batch(...) with the per-batch scalars (start_block, total_len,
+    dict_len, final_block) read from `scalars`, a (4,) int64 tensor on
+    data's device: the match stage's captured program per shape."""
+    return match_batch(data, *scalars.unbind(), bl, batch, level)
+
+
+def _code_handle(data, scalars, length, dist, bl: int, batch: int,
+                 level: int, num_words: int, fixed_codes: bool):
+    """batch_handle(code_batch(...)), scalars as in _match_handle: the
+    coding stages' captured program per shape."""
+    return batch_handle(code_batch(data, *scalars.unbind(), length, dist,
+                                   bl, batch, level, num_words, fixed_codes))
 
 
 def launch_batch(data, start_block: int, total_len: int, dict_len: int,
                  final_block: int, bl: int, batch: int, level: int,
                  num_words: int, fixed_codes: bool = False):
     """Launch one batch's encode_batch on data's device and return its
-    batch_handle; nothing is read back. On a card the encode is the
-    replayed program of its shape (codec/program.py), and the four scalars
-    travel as one small upload that does not synchronise."""
+    batch_handle and its stage events: (words, meta, wanch, events);
+    nothing is read back. On a card the encode is two replayed programs of
+    its shape (codec/program.py), the match stage, then the coding stages
+    on its (length, dist), on the caller's stream; the four scalars travel
+    as one small upload that does not synchronise. events: on a card three
+    timing events recorded on that stream before, between and after the
+    two (read_batch reads them), else None."""
+    dev = data.device
     sc = _device.upload(np.array([start_block, total_len, dict_len,
-                                  final_block], np.int64), data.device)
-    return program.run(_encode_handle, (data, sc),
-                       (bl, batch, level, num_words, fixed_codes))
+                                  final_block], np.int64), dev)
+    events = None
+    if dev.type == "cuda":
+        stream = torch.cuda.current_stream(dev)
+        events = tuple(torch.cuda.Event(enable_timing=True)
+                       for _ in range(3))
+        events[0].record(stream)
+    length, dist = program.run(_match_handle, (data, sc), (bl, batch, level))
+    if events is not None:
+        events[1].record(stream)
+    handle = program.run(_code_handle, (data, sc, length, dist),
+                         (bl, batch, level, num_words, fixed_codes))
+    if events is not None:
+        events[2].record(stream)
+    return (*handle, events)
+
+
+def _count_stages(events) -> None:
+    """A batch's stage times into the open request: encode.match_ns, the
+    elapsed device time from the first event to the second on their
+    stream (the match stage's work and any wait of the device inside it),
+    and encode.code_ns, from the second to the third. Called once the
+    batch's meta has come back: that read followed the three events on
+    the stream they were recorded on, so they have completed and reading
+    them waits for nothing."""
+    e0, e1, e2 = events
+    trace.count("encode.match_ns", round(e0.elapsed_time(e1) * 1e6))
+    trace.count("encode.code_ns", round(e1.elapsed_time(e2) * 1e6))
 
 
 def read_batch(handle, batch: int, nch: int):
-    """Read one batch_handle back: (total bits, the word bytes covering
-    them, stored flags, start flags, header offsets, window counts, window
-    anchors). Only the produced words and the used prefix of each block's
-    anchor row move. Words are u32 values in int64, so they are narrowed
-    to little-endian u32 before the bytes are taken."""
-    words, meta_dev, wanch_dev = handle
+    """Read one launch_batch handle back: (total bits, the word bytes
+    covering them, stored flags, start flags, header offsets, window
+    counts, window anchors). Only the produced words and the used prefix
+    of each block's anchor row move. Words are u32 values in int64, so
+    they are narrowed to little-endian u32 before the bytes are taken. On
+    a card the batch's stage times join the open request's counters
+    (_count_stages)."""
+    words, meta_dev, wanch_dev, events = handle
     m = _device.to_host(meta_dev)
+    if events is not None:
+        _count_stages(events)
     total = int(m[0])
     o = 1
     stored_h = m[o:o + batch]
@@ -767,8 +844,9 @@ class RawDeflater:
     byte-aligned sync-flush empty stored blocks (zlib Z_SYNC_FLUSH, cf.
     deflator.h:135-141) padded to 4 bytes. The index has the JAX package's
     keys (block_bits, block_bytes, sync_points, n, win), so either
-    package's decoder reads it. On a card each batch is the replayed
-    program of its shape (launch_batch, codec/program.py).
+    package's decoder reads it. On a card each batch is two replayed
+    programs of its shape, the match stage and the coding stages
+    (launch_batch, codec/program.py).
     """
 
     def __init__(self, level: int = 6, block_size: int = 1 << 16,

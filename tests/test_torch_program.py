@@ -5,8 +5,8 @@ functions it captures, held here where no card is.
 - A dispatch-mode guard fails on every host read and every op whose output
   shape depends on the data (aten._local_scalar_dense, nonzero,
   masked_select, unique*, is_nonzero, bincount). The functions the program
-  layer captures, encode_batch behind deflate._encode_handle with its
-  per-batch scalars as 0-d tensors and the crc32/adler32 programs, run
+  layer captures, encode_batch's two stages behind deflate._match_handle
+  and deflate._code_handle with their per-batch scalars as 0-d tensors and the crc32/adler32 programs, run
   under it at levels 1, 6 and 9.
 - The port's encode_batch with tensor scalars equals the JAX encode_batch
   (same numpy inputs, made from a seed) on a short last batch, a first
@@ -271,20 +271,24 @@ def _huffman_depth(freqs) -> int:
 
 @pytest.mark.parametrize("level", [1, 6, 9])
 def test_encode_program_makes_no_host_read(level):
-    """deflate._encode_handle, the function one captured program per shape
-    runs, read as a capture reads it: after the first, eager call it
-    uploads nothing, reads nothing back and makes no data-dependent shape,
-    and gives that call's result, batch_handle of encode_batch."""
+    """deflate._match_handle and deflate._code_handle, the functions the
+    two captured programs of a batch run, read as a capture reads them:
+    after the first, eager call each uploads nothing, reads nothing back
+    and makes no data-dependent shape, and the pair gives that call's
+    result, batch_handle of encode_batch."""
     data = text_corpus(level, BL + 3000)
     buf, sc = batch_input(data, 0)
-    args = (torch.from_numpy(buf), torch.tensor(sc, dtype=torch.int64),
-            *statics(level))
-    first = TD._encode_handle(*args)
+    t, scal = torch.from_numpy(buf), torch.tensor(sc, dtype=torch.int64)
+    bl, batch, lv, nw, fixed = statics(level)
+    match = TD._match_handle(t, scal, bl, batch, lv)
+    first = TD._code_handle(t, scal, *match, bl, batch, lv, nw, fixed)
     with NoHostRead(uploads=True):
-        again = TD._encode_handle(*args)
-    want = TD.batch_handle(TD.encode_batch(torch.from_numpy(buf), *sc,
-                                           *statics(level)))
-    for a, b, w in zip(first, again, want):
+        match_again = TD._match_handle(t, scal, bl, batch, lv)
+        again = TD._code_handle(t, scal, *match_again, bl, batch, lv, nw,
+                                fixed)
+    assert all(torch.equal(a, b) for a, b in zip(match, match_again))
+    want = TD.batch_handle(TD.encode_batch(t, *sc, *statics(level)))
+    for a, b, w in zip(first, again, want, strict=True):
         assert torch.equal(a, w) and torch.equal(b, w)
 
 
@@ -462,13 +466,34 @@ def test_run_calls_the_function_on_the_cpu():
 
 
 def test_launch_batch_is_the_eager_handle_on_the_cpu():
+    """On the CPU launch_batch runs the two stages directly and records no
+    stage events."""
     data = text_corpus(5, BL + 100)
     buf, sc = batch_input(data, 0)
-    got = TD.launch_batch(torch.from_numpy(buf), *sc, *statics(6))
+    *got, events = TD.launch_batch(torch.from_numpy(buf), *sc, *statics(6))
     want = TD.batch_handle(TD.encode_batch(torch.from_numpy(buf), *sc,
                                            *statics(6)))
-    for g, w in zip(got, want):
+    assert events is None
+    for g, w in zip(got, want, strict=True):
         assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("level", [1, 6, 9])
+def test_two_stage_encode_matches_one_call_and_jax(level, jax_encode):
+    """code_batch on match_batch's (length, dist), the two programs of a
+    batch, equals encode_batch in one call and the JAX encode_batch, on
+    a short last batch behind a full history."""
+    data = text_corpus(20 + level, BL * BATCH + BL + 777)
+    buf, sc = batch_input(data, BATCH)
+    scal = [torch.tensor(v, dtype=torch.int64) for v in sc]
+    t = torch.from_numpy(buf)
+    with NoHostRead():
+        length, dist = TD.match_batch(t, *scal, BL, BATCH, level)
+        two = TD.code_batch(t, *scal, length, dist, *statics(level))
+    one = port_encode(buf, sc, level)
+    for g, w in zip(two, one, strict=True):
+        assert torch.equal(g, w)
+    _assert_same(two, jax_encode(buf, sc, level), f"two-stage level {level}")
 
 
 @pytest.mark.cuda
