@@ -4,7 +4,7 @@ Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
-It builds the seven CUDA kernels from jdeflate_tpu_torch/csrc (all nvcc
+It builds the eight CUDA kernels from jdeflate_tpu_torch/csrc (all nvcc
 processes at once), then drives the port's paths on a 32 MiB Silesia-like
 corpus. Decode: the corpus compressed by zlib at level 6, indexed by
 RawInflater.build_index and decoded on the GPU through the window-walk
@@ -17,9 +17,14 @@ encode below must each launch the crc32 kernel (csrc/crc32.cu) once.
 crc32: the kernel on 1 MiB and 51,220,480 B of seeded random bytes, from
 bytes and from a device tensor, must equal zlib.crc32 and the plain
 program chain on the card; its time, device time, bound and the plain
-chain's time go in its row. Encode:
+chain's time go in its row. Match probe: the bucket probe kernel
+(csrc/lz77probe.cu) on the encoder's rows of one 1 MiB batch at levels 1,
+6 and 9 must equal the plain loop on the card; its time, device time,
+bound, the plain loop's time and the candidates its walk visits per
+position go in its row. Encode:
 compress_with_index at level 6 with 64 KiB blocks in batches of 16 (the
-bench's round trip) through the match-walk kernel; the gzip stream must
+bench's round trip) through the match-walk and match-probe kernels (one
+launch of each a batch); the gzip stream must
 inflate in zlib and in the port's decoder with every windowed batch at err
 0, and a FEXTRA self-indexed member (of the first MiB: the field holds at
 most 64 KiB of index) must decode with no index handed over. v5 decode: the
@@ -65,9 +70,11 @@ programs cleared, RawDeflater at levels 1, 6 and 9, ZStream("deflate")
 and ShardedDeflater (members and stream, four ranks of cuda:0) run as
 captured CUDA graphs (the card's default, which every earlier phase ran)
 and under program.eager(); streams, indexes and window anchors must be
-byte-equal (sha256) and the match walk's launches equal, each level's
-first batch through its two programs (match stage, coding stages) must
-equal encode_batch in one eager call, its stage times are printed, and
+byte-equal (sha256) and the match walk's and match probe's launches
+equal, each level's first batch through its two programs (match stage,
+coding stages) must equal encode_batch in one eager call, its stage times
+are printed, its record's encode.match_kernel must equal the probe's
+launches, and
 RawDeflater.launch (Phase 1) must make no synchronising call under
 torch.cuda.set_sync_debug_mode("error"); walls, graphs captured, capture
 times and adler32's time per call are printed. Decode programs
@@ -322,8 +329,9 @@ def timed_runs(fn, check):
 
 def encode_phase(data: bytes, zlib6_len: int, card: str) -> tuple:
     """Phase 7: the level-6 encoder on the card. Returns the match-walk
-    kernel's entry of the kernels line and the crc32 kernel's launches in
-    the gzip encode (one: the CRC-32 of the input)."""
+    kernel's entry of the kernels line, the crc32 kernel's launches in
+    the gzip encode (one: the CRC-32 of the input) and the match probe
+    kernel's (one a batch)."""
     import torch
     from jdeflate_tpu_torch.codec import deflate as D
     from jdeflate_tpu_torch.codec import inflate as I
@@ -335,6 +343,7 @@ def encode_phase(data: bytes, zlib6_len: int, card: str) -> tuple:
 
     # ---- 7a. main path: compress_with_index -> decompress, on the card
     lz77.match_walk.launches = 0
+    lz77.match_probe.launches = 0
     cs.crc32_kernel.launches = 0
     t0 = time.perf_counter()
     gz, idx, hl = zstrm.compress_with_index(data, format="gzip",
@@ -342,9 +351,12 @@ def encode_phase(data: bytes, zlib6_len: int, card: str) -> tuple:
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     launches = lz77.match_walk.launches
+    probe_launches = lz77.match_probe.launches
     crc_launches = cs.crc32_kernel.launches
     if launches != nbatch:
         fail(f"match walk launches {launches} != {nbatch} batches")
+    if probe_launches != nbatch:
+        fail(f"match probe launches {probe_launches} != {nbatch} batches")
     if crc_launches != 1:
         fail(f"crc32 kernel launches in the gzip encode {crc_launches} != 1")
     if zlib.decompress(gz, 31) != data:
@@ -374,8 +386,9 @@ def encode_phase(data: bytes, zlib6_len: int, card: str) -> tuple:
     print(f"encode main path: {len(data)} B -> {raw_len} B raw "
           f"(ratio {len(data) / raw_len:.4f}; zlib level 6 {zlib6_len} B, "
           f"{raw_len / zlib6_len:.4f}x zlib), {len(idx['block_bits'])} index "
-          f"entries, match walk launches {launches} = batches, crc32 "
-          f"kernel launches {crc_launches}; first call {first_s:.2f} s; "
+          f"entries, match walk and match probe launches {launches}, "
+          f"{probe_launches} = batches, crc32 kernel launches "
+          f"{crc_launches}; first call {first_s:.2f} s; "
           f"zlib inflate, own windowed decode "
           f"({kinds.count('win')} win batches at err 0; the batches cover "
           f"{dev_bytes} B, the native decoder the other "
@@ -446,7 +459,7 @@ def encode_phase(data: bytes, zlib6_len: int, card: str) -> tuple:
             "ms": statistics.mean(ms), "dev_ms": dev_ms,
             "plain_ms": statistics.mean(plain),
             "bound_ms": statistics.mean(bound), "bound_by": "bytes",
-            "library_ms": None}, crc_launches
+            "library_ms": None}, crc_launches, probe_launches
 
 
 def _mean(xs):
@@ -2182,8 +2195,8 @@ def program_phase(data: bytes, card: str) -> dict:
     run. Printed: each path's wall and device span, the graphs captured and
     their capture time (in the first run), the device busy share of the
     level-6 encode of PROFILE_MB MiB in both paths, and adler32's time
-    per call on 1 MiB and 8 MiB in both paths. Returns B3's
-    launches by captured run."""
+    per call on 1 MiB and 8 MiB in both paths. Returns B3's and the match
+    probe kernel's launches by captured run."""
     import hashlib
     import torch
     from jdeflate_tpu_torch import trace
@@ -2201,39 +2214,41 @@ def program_phase(data: bytes, card: str) -> dict:
     def both(name, fn, out_digest):
         """fn() captured (a first run that captures, then a timed one) and
         eager (a warm run, then a timed one); fail unless the two give the
-        same digest and match walk launches."""
+        same digest, match walk launches and match probe launches. Returns
+        the captured run's launches of the two."""
         st0, c0 = dict(program.stats), capture_s()
         _, first, _ = one_run(fn)
         caps = program.stats["captures"] - st0["captures"]
         cap_s = capture_s() - c0
-        lz77.match_walk.launches = 0
+        lz77.match_walk.launches = lz77.match_probe.launches = 0
         res, wall, span = one_run(fn)
-        n_cap = lz77.match_walk.launches
+        n_cap = lz77.match_walk.launches, lz77.match_probe.launches
         with program.eager():
             fn()
-            lz77.match_walk.launches = 0
+            lz77.match_walk.launches = lz77.match_probe.launches = 0
             eres, ewall, espan = one_run(fn)
-            n_eager = lz77.match_walk.launches
+            n_eager = lz77.match_walk.launches, lz77.match_probe.launches
         dg, edg = out_digest(res), out_digest(eres)
         if dg != edg or n_cap != n_eager:
-            fail(f"phase 15 {name}: captured {dg} ({n_cap} match walk "
-                 f"launches) != eager {edg} ({n_eager})")
+            fail(f"phase 15 {name}: captured {dg} ({n_cap} match walk and "
+                 f"probe launches) != eager {edg} ({n_eager})")
         print(f"program {name} ({card}): captured wall {wall * 1e3:.1f} ms, "
               f"span {span * 1e3:.1f} ms; eager wall {ewall * 1e3:.1f} ms, "
               f"span {espan * 1e3:.1f} ms ({ewall / wall:.2f}x); first "
               f"captured run {first * 1e3:.1f} ms with {caps} graphs "
               f"captured, first calls (eager run and capture) "
               f"{cap_s * 1e3:.1f} ms; sha256 {dg} equal; match "
-              f"walk launches {n_cap} in both", flush=True)
+              f"walk and probe launches {n_cap} in both", flush=True)
         return n_cap
 
     program.clear()
-    launches = {}
+    launches, probes = {}, {}
     kw = dict(block_size=1 << 16, batch=16)
     for level, mb in ((1, PROGRAM_MB), (6, PROGRAM_MB), (9, PROGRAM_L9_MB)):
         part = data[:mb << 20]
         enc = D.RawDeflater(level=level, device="cuda", **kw)
-        launches[f"program_level{level}"] = both(
+        launches[f"program_level{level}"], probes[
+            f"program_level{level}"] = both(
             f"RawDeflater level {level}, {mb} MiB",
             lambda: enc.compress(part),
             lambda r: (digest(r[0]), digest(r[1]), digest(r[1]["win"])))
@@ -2251,6 +2266,11 @@ def program_phase(data: bytes, card: str) -> dict:
         if not all(stage.get(k, 0) > 0 for k in ("encode.match_ns",
                                                  "encode.code_ns")):
             fail(f"level {level}: no stage times in the record: {stage}")
+        if stage.get("encode.match_kernel") != probes[
+                f"program_level{level}"]:
+            fail(f"level {level}: encode.match_kernel "
+                 f"{stage.get('encode.match_kernel')} != the probe kernel's "
+                 f"{probes[f'program_level{level}']} launches")
         print(f"level {level}: two-stage batch equals encode_batch in one "
               f"call; captured run encode.match_ns "
               f"{stage['encode.match_ns'] / 1e6 / mb:.2f} ms/MiB, "
@@ -2290,14 +2310,15 @@ def program_phase(data: bytes, card: str) -> dict:
             z.write(part[pos:pos + ZS_WRITE])
         z.flush(final=True)
         return b"".join(pieces), z.crc32
-    launches["program_zstream"] = both(
+    launches["program_zstream"], probes["program_zstream"] = both(
         f"ZStream deflate, {PROGRAM_MB} MiB", zdeflate,
         lambda r: (digest(r[0]), r[1] == zlib.crc32(part)
                    or fail("phase 15 ZStream: crc32 differs from zlib's")))
     mesh = [torch.device("cuda", 0)] * SHARD_RANKS
     for mode in ("members", "stream"):
         senc = shard.ShardedDeflater(mesh=mesh, level=6, mode=mode)
-        launches[f"program_sharded_{mode}"] = both(
+        launches[f"program_sharded_{mode}"], probes[
+            f"program_sharded_{mode}"] = both(
             f"sharded {mode}, {PROGRAM_MB} MiB", lambda: senc.compress(part),
             lambda r: (digest(r[0]), digest(r[1])))
 
@@ -2320,7 +2341,7 @@ def program_phase(data: bytes, card: str) -> dict:
           f"{program.stats['captures']} captures, first calls (eager run "
           f"and capture) {capture_s():.1f} s, "
           f"{program.stats['replays']} replays this run", flush=True)
-    return launches
+    return launches, probes
 
 
 def decode_program_phase(data: bytes, raw: bytes, idx: dict,
@@ -2684,6 +2705,92 @@ def crc32_phase(card: str, path: dict) -> dict:
     return row
 
 
+def probe_visits(skey, vf, plen, pdist, k: int, pw: int) -> int:
+    """The candidates the probe kernel's walk visits over one batch (a
+    one-off diagnostic), from the bounds that end the walk and its result:
+    sorted index j visits its same-hash predecessors back to the last at or
+    after max(its position - WINDOW_SIZE, valid_from), at most k of them,
+    and stops early at the first whose prefix reaches the cap 4 * pw: the
+    one (plen, pdist) names, since no later one replaces it."""
+    import torch
+    from jdeflate_tpu_torch.formats import constants as C
+    p, h = skey & 0x1FFFF, skey >> 17
+    j = torch.arange(skey.shape[1], device=skey.device)[None, :]
+    lo = torch.maximum(p - C.WINDOW_SIZE, vf.to(torch.int64)[:, None])
+    live = torch.clamp(j - torch.searchsorted(skey, (h << 17) | lo), 0, k)
+    capped = j - torch.searchsorted(skey, (h << 17) | (p - pdist.gather(1,
+                                                                      p)))
+    return int(torch.where(plen.gather(1, p) == 4 * pw, capped, live).sum())
+
+
+def match_probe_phase(card: str, path_launches: int) -> dict:
+    """The bucket probe kernel (csrc/lz77probe.cu) on the encoder's own
+    rows of one 1 MiB batch (16 blocks of 64 KiB behind their 32 KiB halo,
+    Silesia-like bytes) at levels 1, 6 and 9, each at its own depth: it
+    must equal the plain loop (match_probe_ref) on the card; then its time
+    per launch (CUDA events over back-to-back launches), its device time
+    (profiler), its bound (rows, keys and both outputs over 3.35 TB/s), the
+    plain loop's time on the same input, and the mean candidates its walk
+    visits per position (probe_visits). Returns the kernel's row:
+    `launches` the main path's (phase 7's level-6 gzip encode,
+    `path_launches`: one a batch), `check_launches` this phase's own
+    checking calls."""
+    import numpy as np
+    import torch
+    from benchmark import corpus
+    from jdeflate_tpu_torch.codec import deflate as D
+    from jdeflate_tpu_torch.codec import levels
+    from jdeflate_tpu_torch.ops import lz77
+
+    bl, batch = 1 << 16, 16
+    payload = corpus.make_payload(bl * batch, 2121, 0, corpus.MIX)
+    buf = np.zeros(D.HALO + bl * batch + D.PAD, np.uint8)
+    buf[D.HALO:D.HALO + bl * batch] = np.frombuffer(payload, np.uint8)
+    data = torch.from_numpy(buf).cuda()
+    _, vf, _, ext = D._batch_rows(data, 0, bl * batch, 0, batch - 1, bl,
+                                  batch)
+    nh = D.HALO + bl
+    _, skey = lz77.probe_keys(ext.to(torch.int64), nh)
+    moved = ext.numel() + skey.numel() * 8 * 3 + vf.numel() * 8
+    row = {"name": "lz77probe", "route": "cuda",
+           "source": "jdeflate_tpu_torch/csrc/lz77probe.cu", "replaces": None,
+           "levels": [1, 6, 9], "launches": path_launches,
+           "path_launches": {"gzip_encode": path_launches},
+           "check_launches": 0, "max_abs_err": 0, "ms": [], "dev_ms": [],
+           "plain_ms": [], "visits": [],
+           "bound_ms": moved / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+           "library_ms": None}
+    for level in row["levels"]:
+        k, pw = levels._CHAIN[level], 16 if level >= 8 else 8
+        before = lz77.match_probe.launches
+        got = lz77.match_probe(ext, skey, vf, k, pw)
+        want = lz77.match_probe_ref(ext, skey, vf, k, pw)
+        row["check_launches"] += lz77.match_probe.launches - before
+        err = max_abs_err(got, want)
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        if err:
+            fail(f"match probe at level {level}: the kernel differs from "
+                 f"the plain loop by {err}")
+        row["ms"].append(gpu_ms(lambda: lz77.match_probe(ext, skey, vf, k,
+                                                         pw), 20))
+        row["dev_ms"].append(device_ms(
+            lambda: lz77.match_probe(ext, skey, vf, k, pw), ("probe_kernel",),
+            10))
+        row["plain_ms"].append(gpu_ms(
+            lambda: lz77.match_probe_ref(ext, skey, vf, k, pw), 1))
+        visits = probe_visits(skey, vf, *got, k, pw) / skey.numel()
+        row["visits"].append(visits)
+        print(f"lz77probe ({card}) level {level} (k {k}, {pw} words) on "
+              f"{batch} x {bl} B: = the plain loop; "
+              f"{row['ms'][-1]:.4f} ms/launch, device "
+              f"{row['dev_ms'][-1]:.4f} ms/launch, bound "
+              f"{row['bound_ms']:.4f} ms "
+              f"({100 * row['bound_ms'] / row['dev_ms'][-1]:.1f}% of the "
+              f"roofline); plain loop {row['plain_ms'][-1]:.2f} ms; "
+              f"{visits:.2f} candidates visited a position", flush=True)
+    return row
+
+
 def main() -> None:
     try:
         import torch
@@ -2709,7 +2816,7 @@ def main() -> None:
           f"cuda {torch.version.cuda}", flush=True)
     t0 = time.perf_counter()
     built = _cuda.build(["walk", "expand", "lz77walk", "expand5seed",
-                         "expand5resolve", "expand1", "crc32"])
+                         "expand5resolve", "expand1", "crc32", "lz77probe"])
     build_s = time.perf_counter() - t0
     for name, (secs, log) in built.items():
         regs = [ln.strip() for ln in log.splitlines() if "registers" in ln]
@@ -2886,10 +2993,12 @@ def main() -> None:
     profile_run("decode", lambda: dec.decompress(raw, index=idx), span)
 
     stamp("encode phase")
-    enc_kernel, crc_enc = encode_phase(data, len(raw), card)
+    enc_kernel, crc_enc, probe_enc = encode_phase(data, len(raw), card)
     stamp("crc32 phase")
     crc_kernel = crc32_phase(card, {"gzip_decode": crc_dec,
                                     "gzip_encode": crc_enc})
+    stamp("match probe phase")
+    probe_kernel = match_probe_phase(card, probe_enc)
     stamp("v5 phase")
     v5_kernels = v5_phase(dec, raw, data, idx, e2_errs, card)
     stamp("anchored phase")
@@ -2912,7 +3021,7 @@ def main() -> None:
     print(f"phase 14: {time.perf_counter() - t0:.1f} s", flush=True)
     stamp("program phase")
     t0 = time.perf_counter()
-    pg_launches = program_phase(data, card)
+    pg_launches, pg_probes = program_phase(data, card)
     print(f"phase 15: {time.perf_counter() - t0:.1f} s", flush=True)
     stamp("decode program phase")
     t0 = time.perf_counter()
@@ -2924,6 +3033,7 @@ def main() -> None:
                                    **lv_launches, **pg_launches}
     enc_kernel["max_abs_err"] = max(enc_kernel["max_abs_err"], sh_b3_err,
                                     mp_b3_err, lv_b3_err)
+    probe_kernel["path_launches"].update(pg_probes)
 
     kernels = [
         {"name": "walk", "route": "cuda",
@@ -2950,6 +3060,7 @@ def main() -> None:
         *v5_kernels,
         anch_kernel,
         crc_kernel,
+        probe_kernel,
     ]
     # phase 16's captured decodes: each kernel's launches, through replays
     for k in kernels:

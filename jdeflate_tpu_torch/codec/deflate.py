@@ -772,9 +772,11 @@ def launch_batch(data, start_block: int, total_len: int, dict_len: int,
     nothing is read back. On a card the encode is two replayed programs of
     its shape (codec/program.py), the match stage, then the coding stages
     on its (length, dist), on the caller's stream; the four scalars travel
-    as one small upload that does not synchronise. events: on a card three
-    timing events recorded on that stream before, between and after the
-    two (read_batch reads them), else None."""
+    as one small upload that does not synchronise, and the open request
+    counts encode.match_kernel by the probe kernel's launches in the match
+    stage (program.launched: on a replay those its capture recorded).
+    events: on a card three timing events recorded on that stream before,
+    between and after the two (read_batch reads them), else None."""
     dev = data.device
     sc = _device.upload(np.array([start_block, total_len, dict_len,
                                   final_block], np.int64), dev)
@@ -785,6 +787,9 @@ def launch_batch(data, start_block: int, total_len: int, dict_len: int,
                        for _ in range(3))
         events[0].record(stream)
     length, dist = program.run(_match_handle, (data, sc), (bl, batch, level))
+    probes = program.launched(lz77.match_probe)
+    if probes:
+        trace.count("encode.match_kernel", probes)
     if events is not None:
         events[1].record(stream)
     handle = program.run(_code_handle, (data, sc, length, dist),

@@ -47,6 +47,7 @@ Kernel launch counts stay true under replay: a wrapper counts a launch
 where its Python runs, and a replay runs no Python, so the launches a
 capture records for each wrapper in COUNTED are added to its count on
 every replay (the capture itself launches nothing and counts nothing).
+launched(wrapper) gives the launches of the calling thread's last run().
 """
 from __future__ import annotations
 
@@ -60,8 +61,9 @@ from .. import trace
 from ..ops import expand, expand2, expand5, lz77, walk
 
 # kernel wrappers whose `launches` count the launches a replay makes
-COUNTED = (lz77.match_walk, walk.walk_checked, expand2.expand_tokens,
-           expand5.seed_plane, expand5.resolve, expand.expand_matches)
+COUNTED = (lz77.match_probe, lz77.match_walk, walk.walk_checked,
+           expand2.expand_tokens, expand5.seed_plane, expand5.resolve,
+           expand.expand_matches)
 # bytes the programs of one device may hold: static inputs and the growth
 # of the pools they were captured into. The dense decode's programs hold
 # gigabytes (chip_smoke.py phase 16 prints each branch's pool growth); a
@@ -156,8 +158,22 @@ class Program:
             res = tuple(o.clone() for o in self.outs)
         for w, n in zip(COUNTED, self.launches):
             w.launches += n
+        _local.launched = dict(zip(COUNTED, self.launches))
         stats["replays"] += 1
         return res
+
+
+def _note(before: list) -> None:
+    """This thread's last run() launched each wrapper of COUNTED as often
+    as its count rose since `before`."""
+    _local.launched = {w: w.launches - b for w, b in zip(COUNTED, before)}
+
+
+def launched(wrapper) -> int:
+    """The launches of `wrapper` (one of COUNTED) that the calling thread's
+    last run() made: those its capture recorded on a replay, those counted
+    in the eager call otherwise (0 where it took a plain route)."""
+    return getattr(_local, "launched", {}).get(wrapper, 0)
 
 
 def _key(fn, inputs: tuple, statics: tuple):
@@ -217,7 +233,10 @@ def run(fn, inputs: tuple, statics: tuple = ()) -> tuple:
     program per (device, fn, statics, input shapes and dtypes), replayed;
     on the CPU or inside eager(), fn itself."""
     if inputs[0].device.type != "cuda" or is_eager():
-        return fn(*inputs, *statics)
+        before = [w.launches for w in COUNTED]
+        res = fn(*inputs, *statics)
+        _note(before)
+        return res
     key = _key(fn, inputs, statics)
     with _lock:
         prog = _programs.get(key)
@@ -225,7 +244,9 @@ def run(fn, inputs: tuple, statics: tuple = ()) -> tuple:
             _programs.move_to_end(key)
             return prog(inputs)
         with trace.span("program.capture"):
+            before = [w.launches for w in COUNTED]
             res = fn(*inputs, *statics)     # warms tables, kernels, attrs
+            _note(before)
             dev = inputs[0].device
             pool = _pools.get(dev)
             if pool is None:

@@ -7,7 +7,9 @@ visits; lengths are exact up to the 258-byte cap (getmatchlength,
 src/deflator.c:1977-2101); the parse is greedy for levels 1-5 and lazy for
 6-9 (compress1/compress2) as a local decision rule (parse_take) plus one
 sequential walk in match space: the kernel csrc/lz77walk.cu
-(match_walk), with match_walk_ref its plain version.
+(match_walk), with match_walk_ref its plain version. The chain walk itself
+is the kernel csrc/lz77probe.cu (match_probe), with match_probe_ref its
+plain version.
 
 Arrays keep the reference's flat batch layout: (B, row) rows with row =
 halo + bl + pad. u32 words and hashes live in int64 tensors masked to 32
@@ -81,43 +83,43 @@ def _shift_left_cols(a, k: int):
     return torch.cat([a[:, k:], torch.zeros_like(a[:, :k])], 1)
 
 
-def find_matches_batch(ext: torch.Tensor, block_len: torch.Tensor,
-                       valid_from: torch.Tensor, halo: int, bl: int, pad: int,
-                       k: int, exact_ext: bool = True, ext_top: int = 8,
-                       ext_rounds: int = 4, rescue: bool = False,
-                       probe_words: int = 8, ext_mdiv: int = 16):
-    """Best match per position for a batch of blocks.
+def _word_cols(e64, off: int, nh: int):
+    """w[:, p] = the 4 bytes at p + off of each row, a little-endian u32."""
+    return (e64[:, off:off + nh] | (e64[:, off + 1:off + 1 + nh] << 8)
+            | (e64[:, off + 2:off + 2 + nh] << 16)
+            | (e64[:, off + 3:off + 3 + nh] << 24))
 
-    ext: (B, halo + bl + pad) u8 rows (halo history + block + zero pad).
-    block_len, valid_from: (B,) ints. Returns (length, dist): (B, bl) int64.
 
-    The 32-byte probe prefixes are co-sorted with the (hash, pos) key, so
-    the chain walk becomes k shifted compares over the sorted arrays; the
-    scatter by sorted position returns results to position order. Lengths
-    then extend by the link rule LCP(i,d) = s + LCP(i+s,d), a top-T distance
-    pass of suffix runs, and compacted gather-compare rounds.
-    """
-    B = ext.shape[0]
+def probe_keys(e64, nh: int):
+    """(w0, skey) of (B, row) int64 byte rows: w0[:, p] the 4-byte word at
+    each position p < nh, skey each row's (hash << 17 | p) keys sorted
+    (unique, since the position is in the key)."""
+    w0 = _word_cols(e64, 0, nh)
+    pos = torch.arange(nh, dtype=torch.int64, device=e64.device)[None, :]
+    return w0, torch.sort((_hash(w0, HASH_BITS) << 17) | pos, dim=1).values
+
+
+def match_probe_ref(ext, skey, valid_from, k: int, probe_words: int):
+    """Plain version of the bucket probe (any device, no host reads).
+
+    ext: (B, row) u8 rows; skey: (B, nh) int64 sorted (hash << 17 | pos)
+    keys of positions [0, nh) of each row; valid_from: (B,) ints. For each
+    sorted index j and kk = 1..k, the candidate j - kk counts when it lies
+    in the row, has j's hash, a distance in (0, WINDOW_SIZE] and a position
+    >= valid_from; its length is the common prefix of the two positions'
+    first 4 * probe_words bytes (probe_words co-sorted 4-byte words), and a
+    strictly longer one replaces the best. Returns (plen, pdist), (B, nh)
+    int64 in position order."""
+    B, nh = skey.shape
     dev = ext.device
-    row = halo + bl + pad
-    nh = halo + bl
     e64 = ext.to(torch.int64)
-
-    def wcol(off):
-        return (e64[:, off:off + nh] | (e64[:, off + 1:off + 1 + nh] << 8)
-                | (e64[:, off + 2:off + 2 + nh] << 16)
-                | (e64[:, off + 3:off + 3 + nh] << 24))
-
-    PW = probe_words
-    sw0 = [wcol(4 * t) for t in range(PW)]
-    h = _hash(sw0[0], HASH_BITS)
-    pos = torch.arange(nh, dtype=torch.int64, device=dev)[None, :].expand(
-        B, nh)
-    skey, perm = torch.sort((h << 17) | pos, dim=1)     # keys are unique
-    sw = [s.gather(1, perm) for s in sw0]
     spos = skey & 0x1FFFF
     shash = skey >> 17
     svfrom = valid_from.to(torch.int64)[:, None]
+    pos = torch.arange(nh, dtype=torch.int64, device=dev)[None, :].expand(
+        B, nh)
+    PW = probe_words
+    sw = [_word_cols(e64, 4 * t, nh).gather(1, spos) for t in range(PW)]
 
     best_len = torch.zeros((B, nh), dtype=torch.int64, device=dev)
     best_dist = torch.zeros((B, nh), dtype=torch.int64, device=dev)
@@ -147,15 +149,83 @@ def find_matches_batch(ext: torch.Tensor, block_len: torch.Tensor,
     # back to position order: spos is a permutation of [0, nh) per row
     plen = torch.zeros_like(best_len).scatter_(1, spos, best_len)
     pdist = torch.zeros_like(best_dist).scatter_(1, spos, best_dist)
+    return plen, pdist
+
+
+def match_probe(ext, skey, valid_from, k: int, probe_words: int):
+    """The bucket probe: csrc/lz77probe.cu on a CUDA tensor,
+    match_probe_ref on a CPU tensor; same arguments and result. The kernel
+    walks each sorted index's same-hash predecessors and stops at the
+    first that fails a condition, or at the length cap, which returns the
+    plain loop's result. Counts its kernel launches in
+    match_probe.launches."""
+    if ext.device.type == "cpu":
+        return match_probe_ref(ext, skey, valid_from, k, probe_words)
+    from . import _cuda
+    dev = ext.device
+    B, row = ext.shape
+    nh = skey.shape[1]
+    _cuda.check_tensor(ext, "ext", torch.uint8, dev)
+    _cuda.check_tensor(skey, "skey", torch.int64, dev, (B, nh))
+    if probe_words not in (8, 16) or row < nh + 4 * probe_words + 4 \
+            or nh > 1 << 17:
+        raise ValueError(f"match probe: {probe_words} words over rows of "
+                         f"{row} B with {nh} positions")
+    vf = valid_from.to(torch.int64).contiguous()
+    _cuda.check_tensor(vf, "valid_from", torch.int64, dev, (B,))
+    fn = _cuda.entry("lz77probe", "jd_match_probe", [ctypes.c_void_p] * 5
+                     + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    # the kernel writes every position: spos is a permutation of [0, nh)
+    plen = torch.empty((B, nh), dtype=torch.int64, device=dev)
+    pdist = torch.empty((B, nh), dtype=torch.int64, device=dev)
+    with torch.cuda.device(dev):
+        rc = fn(ext.data_ptr(), skey.data_ptr(), vf.data_ptr(),
+                plen.data_ptr(), pdist.data_ptr(), B, row, nh, k,
+                probe_words, C.WINDOW_SIZE, _cuda.stream_ptr())
+    _cuda.check(rc, "match probe kernel launch")
+    match_probe.launches += 1
+    return plen, pdist
+
+
+match_probe.launches = 0
+
+
+def find_matches_batch(ext: torch.Tensor, block_len: torch.Tensor,
+                       valid_from: torch.Tensor, halo: int, bl: int, pad: int,
+                       k: int, exact_ext: bool = True, ext_top: int = 8,
+                       ext_rounds: int = 4, rescue: bool = False,
+                       probe_words: int = 8, ext_mdiv: int = 16):
+    """Best match per position for a batch of blocks.
+
+    ext: (B, halo + bl + pad) u8 rows (halo history + block + zero pad).
+    block_len, valid_from: (B,) ints. Returns (length, dist): (B, bl) int64.
+
+    The (hash, pos) key is sorted, so the chain walk becomes a probe of
+    each sorted index's k predecessors (match_probe: the kernel
+    csrc/lz77probe.cu on a card, match_probe_ref's k shifted compares of
+    co-sorted prefix words on the CPU), with prefixes of 4 * probe_words
+    bytes. Lengths then extend by the link rule LCP(i,d) = s + LCP(i+s,d),
+    a top-T distance pass of suffix runs, and compacted gather-compare
+    rounds.
+    """
+    B = ext.shape[0]
+    dev = ext.device
+    row = halo + bl + pad
+    nh = halo + bl
+    e64 = ext.to(torch.int64)
+    w0, skey = probe_keys(e64, nh)
+    plen, pdist = match_probe(ext, skey, valid_from, k, probe_words)
 
     if rescue:
         # 3-byte secondary hash (levels >= 6): the reference's QBITS=14
         # short-match table (deflator.c:49-70, 2676-2711), rejecting len-3
         # beyond offset 8192 (deflator.c:2829-2831)
-        w0p = sw0[0]
-        h3 = _hash(w0p & 0xFFFFFF, 14)
+        pos = torch.arange(nh, dtype=torch.int64, device=dev)[None, :].expand(
+            B, nh)
+        svfrom = valid_from.to(torch.int64)[:, None]
+        h3 = _hash(w0 & 0xFFFFFF, 14)
         sk3, perm3 = torch.sort((h3 << 17) | pos, dim=1)
-        s3w = w0p.gather(1, perm3)
+        s3w = w0.gather(1, perm3)
         sp3 = sk3 & 0x1FFFF
         sh3 = sk3 >> 17
         r_len = torch.zeros((B, nh), dtype=torch.int64, device=dev)
