@@ -59,13 +59,10 @@ every process's blob, info and retries must equal the one-process run's,
 and the match walk is held to its plain version on each worker's first
 round; every worker must exit 0 with no gloo thread left after its
 teardown (parallel/mesh.py's order), and the phase prints their return
-codes. Levels and bench (phase 14): the first 256 KiB encoded at levels 1
-and 9 on the card and on the CPU must give equal streams and indexes, the
-match walk held to its plain version on their batches; then the port's
-bench (python3 -m jdeflate_tpu_torch.bench, BENCH_CORPUS_MB=8) runs in a
-subprocess: its line is printed, and it must round-trip with a value above
-0, print the card's share of its decode, run its five config rows without
-an error and import no jax. Programs (phase 15): with the captured
+codes. Levels (phase 14): the first 256 KiB encoded at levels 1 and 9 on
+the card and on the CPU must give equal streams and indexes, and the
+match walk is held to its plain version on their batches. Programs (phase
+15): with the captured
 programs cleared, RawDeflater at levels 1, 6 and 9, ZStream("deflate")
 and ShardedDeflater (members and stream, four ranks of cuda:0) run as
 captured CUDA graphs (the card's default, which every earlier phase ran)
@@ -134,8 +131,7 @@ SHARD_RANKS = 4               # sharded encode: four ranks on cuda:0
 SHARD_STREAM_MB = 8           # sharded stream mode and the retry run
 MP_WORKER_S = 300             # multi-process phase: each spawn's limit
 PROFILE_MB = 4                # ZStream and sharded paths: profiled slice
-LEVELS_KB = 256               # phase 14a: levels 1 and 9, card and CPU
-BENCH_S = 600                 # phase 14b: the bench subprocess's limit
+LEVELS_KB = 256               # phase 14: levels 1 and 9, card and CPU
 PROGRAM_MB = 8                # phase 15: levels 1 and 6, ZStream, sharded
 PROGRAM_L9_MB = 2             # phase 15: level 9
 # crc32 kernel: a round trip's 1 MiB payload, the largest Silesia file
@@ -2076,7 +2072,7 @@ def multiproc_phase(data: bytes, card: str, ref: dict) -> tuple:
 
 
 def levels_phase(data: bytes, card: str) -> tuple:
-    """Phase 14a: the encoder at levels 1 (greedy, 2 probes) and 9 (lazy,
+    """Phase 14: the encoder at levels 1 (greedy, 2 probes) and 9 (lazy,
     512 probes, 2 KiB split chunks, two-queue trees) on the card, over the
     first LEVELS_KB KiB in 64 KiB blocks, one batch of 4: the stream and
     index must equal the CPU's, zlib must inflate it, and the match walk
@@ -2123,56 +2119,6 @@ def levels_phase(data: bytes, card: str) -> tuple:
               f"inflates it; match walk launches {n}, equal to its plain "
               f"version on every batch (max abs err {err})", flush=True)
     return launches, err
-
-
-def bench_phase(card: str) -> None:
-    """Phase 14b: the port's bench (python3 -m jdeflate_tpu_torch.bench) in
-    a subprocess at BENCH_CORPUS_MB=8, within BENCH_S seconds. Its line is
-    printed; it must exit 0 with a round trip, a value above 0 and the
-    card's share of the headline decode, every config row without an error
-    and with every round trip true, and no jax in its process."""
-    path = os.path.join(REPO, "jdeflate_tpu_torch", "_build",
-                        "bench_details.json")
-    with contextlib.suppress(FileNotFoundError):
-        os.remove(path)
-    env = {**os.environ, "BENCH_CORPUS_MB": "8", "BENCH_LEVEL": "6",
-           "BENCH_SKIP_EXTRA": "", "BENCH_PROFILE": ""}
-    env.pop("JDT_EXPAND", None)
-    t0 = time.perf_counter()
-    try:
-        r = subprocess.run([sys.executable, "-m", "jdeflate_tpu_torch.bench"],
-                           cwd=REPO, env=env, capture_output=True, text=True,
-                           timeout=BENCH_S)
-    except subprocess.TimeoutExpired:
-        fail(f"the bench did not finish within {BENCH_S} s")
-    took = time.perf_counter() - t0
-    out = r.stdout.strip().splitlines()
-    if r.returncode != 0 or not out:
-        fail(f"the bench exited {r.returncode}: {r.stderr[-2000:]}")
-    print(f"bench line: {out[-1]}", flush=True)
-    line = json.loads(out[-1])
-    with open(path) as f:
-        details = json.load(f)
-    if not line["value"] > 0 or details.get("roundtrip_exact") is not True:
-        fail(f"bench: value {line['value']}, round trip "
-             f"{details.get('roundtrip_exact')}")
-    if "decode_card_share" not in line:
-        fail("bench: no decode_card_share in its line")
-    rows = details.get("configs", {})
-    if len(rows) != 5:
-        fail(f"bench: config rows {sorted(rows)}")
-    for name, row in rows.items():
-        checks = [v for k, v in row.items()
-                  if k == "roundtrip" or k.endswith("_ok")]
-        if "error" in row or not checks or not all(v is True
-                                                   for v in checks):
-            fail(f"bench row {name}: {row}")
-    if details.get("jax_imported") is not False:
-        fail("the bench's process imported jax or jdeflate_tpu")
-    print(f"bench details: {json.dumps(details)}", flush=True)
-    print(f"bench phase ({card}): {took:.1f} s; rows "
-          + ", ".join(sorted(rows)) + " without error, every round trip "
-          "true; no jax in the bench's process", flush=True)
 
 
 def program_phase(data: bytes, card: str) -> dict:
@@ -3013,11 +2959,10 @@ def main() -> None:
     stamp("multi-process phase")
     torch.cuda.empty_cache()
     mp_launches, mp_b3_err = multiproc_phase(data, card, sh_ref)
-    stamp("levels and bench phase")
+    stamp("levels phase")
     t0 = time.perf_counter()
     lv_launches, lv_b3_err = levels_phase(data, card)
     torch.cuda.empty_cache()
-    bench_phase(card)
     print(f"phase 14: {time.perf_counter() - t0:.1f} s", flush=True)
     stamp("program phase")
     t0 = time.perf_counter()
