@@ -4,7 +4,7 @@ Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
-It builds the eight CUDA kernels from jdeflate_tpu_torch/csrc (all nvcc
+It builds the nine CUDA kernels from jdeflate_tpu_torch/csrc (all nvcc
 processes at once), then drives the port's paths on a 32 MiB Silesia-like
 corpus. Decode: the corpus compressed by zlib at level 6, indexed by
 RawInflater.build_index and decoded on the GPU through the window-walk
@@ -21,7 +21,10 @@ chain's time go in its row. Match probe: the bucket probe kernel
 (csrc/lz77probe.cu) on the encoder's rows of one 1 MiB batch at levels 1,
 6 and 9 must equal the plain loop on the card; its time, device time,
 bound, the plain loop's time and the candidates its walk visits per
-position go in its row. Encode:
+position go in its row. Tree kernel: the two-queue Huffman kernel
+(csrc/huffman2q.cu) on the (512, 286) and (512, 30) rows of one 1 MiB
+level-9 batch must equal the plain loop on the card; its time, device
+time, bound and the plain loop's time go in its row. Encode:
 compress_with_index at level 6 with 64 KiB blocks in batches of 16 (the
 bench's round trip) through the match-walk and match-probe kernels (one
 launch of each a batch); the gzip stream must
@@ -67,11 +70,12 @@ programs cleared, RawDeflater at levels 1, 6 and 9, ZStream("deflate")
 and ShardedDeflater (members and stream, four ranks of cuda:0) run as
 captured CUDA graphs (the card's default, which every earlier phase ran)
 and under program.eager(); streams, indexes and window anchors must be
-byte-equal (sha256) and the match walk's and match probe's launches
-equal, each level's first batch through its two programs (match stage,
-coding stages) must equal encode_batch in one eager call, its stage times
-are printed, its record's encode.match_kernel must equal the probe's
-launches, and
+byte-equal (sha256) and the match walk's, match probe's and tree
+kernel's launches equal, each level's first batch through its two programs
+(match stage, coding stages) must equal encode_batch in one eager call, its
+stage times are printed, its record's encode.match_kernel and
+encode.tree_kernel must equal the probe's and the tree kernel's launches
+(the tree kernel's: none at levels 1 and 6), and
 RawDeflater.launch (Phase 1) must make no synchronising call under
 torch.cuda.set_sync_debug_mode("error"); walls, graphs captured, capture
 times and adler32's time per call are printed. Decode programs
@@ -2141,15 +2145,16 @@ def program_phase(data: bytes, card: str) -> dict:
     run. Printed: each path's wall and device span, the graphs captured and
     their capture time (in the first run), the device busy share of the
     level-6 encode of PROFILE_MB MiB in both paths, and adler32's time
-    per call on 1 MiB and 8 MiB in both paths. Returns B3's and the match
-    probe kernel's launches by captured run."""
+    per call on 1 MiB and 8 MiB in both paths. Returns B3's, the match
+    probe kernel's and the tree kernel's launches by captured run (the
+    tree kernel's by level only)."""
     import hashlib
     import torch
     from jdeflate_tpu_torch import trace
     from jdeflate_tpu_torch.codec import deflate as D
     from jdeflate_tpu_torch.codec import program
     from jdeflate_tpu_torch.ops import checksum as cs
-    from jdeflate_tpu_torch.ops import lz77
+    from jdeflate_tpu_torch.ops import huffman, lz77
     from jdeflate_tpu_torch.parallel import shard
     from jdeflate_tpu_torch.stream import zstrm
 
@@ -2157,44 +2162,49 @@ def program_phase(data: bytes, card: str) -> dict:
         b = x if isinstance(x, bytes) else repr(canonical(x)).encode()
         return hashlib.sha256(b).hexdigest()[:16]
 
+    counted = (lz77.match_walk, lz77.match_probe, huffman.code_lengths)
+
     def both(name, fn, out_digest):
         """fn() captured (a first run that captures, then a timed one) and
         eager (a warm run, then a timed one); fail unless the two give the
-        same digest, match walk launches and match probe launches. Returns
-        the captured run's launches of the two."""
+        same digest and the same launches of the match walk, the match
+        probe and the tree kernel. Returns the captured run's launches of
+        the three."""
         st0, c0 = dict(program.stats), capture_s()
         _, first, _ = one_run(fn)
         caps = program.stats["captures"] - st0["captures"]
         cap_s = capture_s() - c0
-        lz77.match_walk.launches = lz77.match_probe.launches = 0
+        for w in counted:
+            w.launches = 0
         res, wall, span = one_run(fn)
-        n_cap = lz77.match_walk.launches, lz77.match_probe.launches
+        n_cap = tuple(w.launches for w in counted)
         with program.eager():
             fn()
-            lz77.match_walk.launches = lz77.match_probe.launches = 0
+            for w in counted:
+                w.launches = 0
             eres, ewall, espan = one_run(fn)
-            n_eager = lz77.match_walk.launches, lz77.match_probe.launches
+            n_eager = tuple(w.launches for w in counted)
         dg, edg = out_digest(res), out_digest(eres)
         if dg != edg or n_cap != n_eager:
-            fail(f"phase 15 {name}: captured {dg} ({n_cap} match walk and "
-                 f"probe launches) != eager {edg} ({n_eager})")
+            fail(f"phase 15 {name}: captured {dg} ({n_cap} match walk, "
+                 f"probe and tree launches) != eager {edg} ({n_eager})")
         print(f"program {name} ({card}): captured wall {wall * 1e3:.1f} ms, "
               f"span {span * 1e3:.1f} ms; eager wall {ewall * 1e3:.1f} ms, "
               f"span {espan * 1e3:.1f} ms ({ewall / wall:.2f}x); first "
               f"captured run {first * 1e3:.1f} ms with {caps} graphs "
               f"captured, first calls (eager run and capture) "
               f"{cap_s * 1e3:.1f} ms; sha256 {dg} equal; match "
-              f"walk and probe launches {n_cap} in both", flush=True)
+              f"walk, probe and tree launches {n_cap} in both", flush=True)
         return n_cap
 
     program.clear()
-    launches, probes = {}, {}
+    launches, probes, trees = {}, {}, {}
     kw = dict(block_size=1 << 16, batch=16)
     for level, mb in ((1, PROGRAM_MB), (6, PROGRAM_MB), (9, PROGRAM_L9_MB)):
         part = data[:mb << 20]
         enc = D.RawDeflater(level=level, device="cuda", **kw)
-        launches[f"program_level{level}"], probes[
-            f"program_level{level}"] = both(
+        key = f"program_level{level}"
+        launches[key], probes[key], trees[key] = both(
             f"RawDeflater level {level}, {mb} MiB",
             lambda: enc.compress(part),
             lambda r: (digest(r[0]), digest(r[1]), digest(r[1]["win"])))
@@ -2212,11 +2222,15 @@ def program_phase(data: bytes, card: str) -> dict:
         if not all(stage.get(k, 0) > 0 for k in ("encode.match_ns",
                                                  "encode.code_ns")):
             fail(f"level {level}: no stage times in the record: {stage}")
-        if stage.get("encode.match_kernel") != probes[
-                f"program_level{level}"]:
+        if stage.get("encode.match_kernel") != probes[key]:
             fail(f"level {level}: encode.match_kernel "
                  f"{stage.get('encode.match_kernel')} != the probe kernel's "
-                 f"{probes[f'program_level{level}']} launches")
+                 f"{probes[key]} launches")
+        if stage.get("encode.tree_kernel", 0) != trees[key] \
+                or (trees[key] > 0) != (level >= 8):
+            fail(f"level {level}: encode.tree_kernel "
+                 f"{stage.get('encode.tree_kernel')}, the tree kernel's "
+                 f"launches {trees[key]}")
         print(f"level {level}: two-stage batch equals encode_batch in one "
               f"call; captured run encode.match_ns "
               f"{stage['encode.match_ns'] / 1e6 / mb:.2f} ms/MiB, "
@@ -2256,15 +2270,15 @@ def program_phase(data: bytes, card: str) -> dict:
             z.write(part[pos:pos + ZS_WRITE])
         z.flush(final=True)
         return b"".join(pieces), z.crc32
-    launches["program_zstream"], probes["program_zstream"] = both(
+    launches["program_zstream"], probes["program_zstream"], _ = both(
         f"ZStream deflate, {PROGRAM_MB} MiB", zdeflate,
         lambda r: (digest(r[0]), r[1] == zlib.crc32(part)
                    or fail("phase 15 ZStream: crc32 differs from zlib's")))
     mesh = [torch.device("cuda", 0)] * SHARD_RANKS
     for mode in ("members", "stream"):
         senc = shard.ShardedDeflater(mesh=mesh, level=6, mode=mode)
-        launches[f"program_sharded_{mode}"], probes[
-            f"program_sharded_{mode}"] = both(
+        key = f"program_sharded_{mode}"
+        launches[key], probes[key], _ = both(
             f"sharded {mode}, {PROGRAM_MB} MiB", lambda: senc.compress(part),
             lambda r: (digest(r[0]), digest(r[1])))
 
@@ -2287,7 +2301,7 @@ def program_phase(data: bytes, card: str) -> dict:
           f"{program.stats['captures']} captures, first calls (eager run "
           f"and capture) {capture_s():.1f} s, "
           f"{program.stats['replays']} replays this run", flush=True)
-    return launches, probes
+    return launches, probes, trees
 
 
 def decode_program_phase(data: bytes, raw: bytes, idx: dict,
@@ -2737,6 +2751,78 @@ def match_probe_phase(card: str, path_launches: int) -> dict:
     return row
 
 
+def tree_kernel_phase(card: str, path_launches: dict) -> dict:
+    """The two-queue Huffman kernel (csrc/huffman2q.cu) on the encoder's
+    own rows of one 1 MiB level-9 batch (16 blocks of 64 KiB, Silesia-like
+    bytes, the level's full probe depth): the (512, 286) literal/length and
+    (512, 30) distance frequencies that code_batch hands it, recorded in an
+    eager encode. It must equal the plain loop (code_lengths_ref) on the
+    card; then its time per launch (CUDA events over back-to-back
+    launches), its device time (profiler), its bound (the frequencies in
+    and the lengths out over 3.35 TB/s) and the plain loop's time, eager,
+    on the same rows. Returns the kernel's row: `launches` the main path's
+    (phase 15's captured level-9 encode, `path_launches`: two a batch),
+    `check_launches` this phase's own checking calls."""
+    import torch
+    from benchmark import corpus
+    from jdeflate_tpu_torch.codec import deflate as D
+    from jdeflate_tpu_torch.codec import program
+    from jdeflate_tpu_torch.formats import constants as C
+    from jdeflate_tpu_torch.ops import huffman
+
+    calls = []
+    entropy = D._block_entropy
+
+    def record(lfreq, dfreq, *args, **kw):
+        calls.extend([(lfreq.clone(), C.MAX_CODE_BITS),
+                      (dfreq.clone(), C.MAX_CODE_BITS)])
+        return entropy(lfreq, dfreq, *args, **kw)
+
+    payload = corpus.make_payload(1 << 20, 2121, 0, corpus.MIX)
+    D._block_entropy = record
+    try:
+        with program.eager():
+            D.RawDeflater(level=9, block_size=1 << 16, batch=16,
+                          device="cuda").compress(payload)
+    finally:
+        D._block_entropy = entropy
+    row = {"name": "huffman2q", "route": "cuda",
+           "source": "jdeflate_tpu_torch/csrc/huffman2q.cu",
+           "replaces": None, "shapes": [list(f.shape) for f, _ in calls],
+           "launches": path_launches.get("program_level9", 0),
+           "path_launches": dict(path_launches), "check_launches": 0,
+           "max_abs_err": 0, "ms": [], "dev_ms": [], "plain_ms": [],
+           "bound_ms": [], "bound_by": "bytes", "library_ms": None}
+    if [tuple(f.shape) for f, _ in calls] != [(512, 286), (512, 30)]:
+        fail(f"tree kernel: a level-9 batch built trees of "
+             f"{row['shapes']}, not (512, 286) and (512, 30)")
+    kernel = huffman.code_lengths
+    for freqs, L in calls:
+        before = kernel.launches
+        got = kernel(freqs, L)
+        want = huffman.code_lengths_ref(freqs, L)
+        row["check_launches"] += kernel.launches - before
+        err = max_abs_err((got,), (want,))
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        if err:
+            fail(f"tree kernel on {tuple(freqs.shape)}: differs from the "
+                 f"plain loop by {err}")
+        row["ms"].append(gpu_ms(lambda: kernel(freqs, L), 50))
+        row["dev_ms"].append(device_ms(lambda: kernel(freqs, L),
+                                       ("two_queue_kernel",), 20))
+        row["plain_ms"].append(gpu_ms(
+            lambda: huffman.code_lengths_ref(freqs, L), 1))
+        row["bound_ms"].append(freqs.numel() * 16 / HBM_BYTES_PER_S * 1e3)
+        print(f"huffman2q ({card}) on {tuple(freqs.shape)}: = the plain "
+              f"loop; {row['ms'][-1]:.4f} ms/launch, device "
+              f"{row['dev_ms'][-1]:.4f} ms/launch, bound "
+              f"{row['bound_ms'][-1]:.5f} ms "
+              f"({100 * row['bound_ms'][-1] / row['dev_ms'][-1]:.2f}% of the "
+              f"roofline); plain loop {row['plain_ms'][-1]:.2f} ms",
+              flush=True)
+    return row
+
+
 def main() -> None:
     try:
         import torch
@@ -2762,7 +2848,8 @@ def main() -> None:
           f"cuda {torch.version.cuda}", flush=True)
     t0 = time.perf_counter()
     built = _cuda.build(["walk", "expand", "lz77walk", "expand5seed",
-                         "expand5resolve", "expand1", "crc32", "lz77probe"])
+                         "expand5resolve", "expand1", "crc32", "lz77probe",
+                         "huffman2q"])
     build_s = time.perf_counter() - t0
     for name, (secs, log) in built.items():
         regs = [ln.strip() for ln in log.splitlines() if "registers" in ln]
@@ -2966,8 +3053,10 @@ def main() -> None:
     print(f"phase 14: {time.perf_counter() - t0:.1f} s", flush=True)
     stamp("program phase")
     t0 = time.perf_counter()
-    pg_launches, pg_probes = program_phase(data, card)
+    pg_launches, pg_probes, pg_trees = program_phase(data, card)
     print(f"phase 15: {time.perf_counter() - t0:.1f} s", flush=True)
+    stamp("tree kernel phase")
+    tree_kernel = tree_kernel_phase(card, pg_trees)
     stamp("decode program phase")
     t0 = time.perf_counter()
     dp_launches = decode_program_phase(data, raw, idx, card)
@@ -3006,6 +3095,7 @@ def main() -> None:
         anch_kernel,
         crc_kernel,
         probe_kernel,
+        tree_kernel,
     ]
     # phase 16's captured decodes: each kernel's launches, through replays
     for k in kernels:

@@ -774,7 +774,8 @@ def launch_batch(data, start_block: int, total_len: int, dict_len: int,
     on its (length, dist), on the caller's stream; the four scalars travel
     as one small upload that does not synchronise, and the open request
     counts encode.match_kernel by the probe kernel's launches in the match
-    stage (program.launched: on a replay those its capture recorded).
+    stage and encode.tree_kernel by the two-queue kernel's in the coding
+    stages (program.launched: on a replay those its capture recorded).
     events: on a card three timing events recorded on that stream before,
     between and after the two (read_batch reads them), else None."""
     dev = data.device
@@ -794,6 +795,9 @@ def launch_batch(data, start_block: int, total_len: int, dict_len: int,
         events[1].record(stream)
     handle = program.run(_code_handle, (data, sc, length, dist),
                          (bl, batch, level, num_words, fixed_codes))
+    trees = program.launched(huffman.code_lengths)
+    if trees:
+        trace.count("encode.tree_kernel", trees)
     if events is not None:
         events[2].record(stream)
     return (*handle, events)

@@ -8,8 +8,13 @@ the LSB-first stream (src/deflator.c:1188-1285).
 
 Every sort is stable, as in the JAX package: tied frequencies must order
 by symbol index, or another tree comes out.
+
+The two-queue code lengths of levels 8-9 are the kernel csrc/huffman2q.cu on a
+card (code_lengths), with code_lengths_ref its plain version.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -26,6 +31,35 @@ def _scatter_back(order, vals):
 
 
 def code_lengths(freqs: torch.Tensor, max_bits: int) -> torch.Tensor:
+    """Two-queue code lengths: csrc/huffman2q.cu on a CUDA tensor,
+    code_lengths_ref on a CPU tensor; same arguments and result. The
+    kernel builds each row's tree on one warp, in one launch on the current
+    stream for all rows. Counts its kernel launches in
+    code_lengths.launches."""
+    if freqs.device.type == "cpu":
+        return code_lengths_ref(freqs, max_bits)
+    from . import _cuda
+    dev = freqs.device
+    f = freqs.to(torch.int64).contiguous()
+    G, n = f.shape
+    if not 1 <= n <= 288 or not 1 <= max_bits <= 15:
+        raise ValueError(f"two-queue code lengths: {n} symbols at "
+                         f"{max_bits} bits")
+    out = torch.empty((G, n), dtype=torch.int64, device=dev)
+    fn = _cuda.entry("huffman2q", "jd_code_lengths", [ctypes.c_void_p] * 2
+                     + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    with torch.cuda.device(dev):
+        rc = fn(f.data_ptr(), out.data_ptr(), G, n, max_bits,
+                _cuda.stream_ptr())
+    _cuda.check(rc, "two-queue code lengths kernel launch")
+    code_lengths.launches += 1
+    return out
+
+
+code_lengths.launches = 0
+
+
+def code_lengths_ref(freqs: torch.Tensor, max_bits: int) -> torch.Tensor:
     """Length-limited code lengths by the two-queue Huffman merge plus the
     zlib-style overflow repair (the reference's computelengths +
     limitlengths). freqs: (G, n) -> (G, n) int64 lengths.
