@@ -43,6 +43,12 @@ captures start a new one) and goes with the last of its programs, and an
 eviction calls empty_cache() once. tests/test_torch_decode_program.py
 holds these facts on the card.
 
+Each device captures on a side stream of its own (capture_stream).
+torch.cuda.graph's default is one stream for the whole process, made on
+the device current at its first use: a capture on another card then runs
+its ops on that card's streams while the first card's stream captures,
+and CUDA refuses them (cudaErrorStreamCaptureUnsupported).
+
 Kernel launch counts stay true under replay: a wrapper counts a launch
 where its Python runs, and a replay runs no Python, so the launches a
 capture records for each wrapper in COUNTED are added to its count on
@@ -75,6 +81,7 @@ _lock = threading.RLock()
 # key -> Program, least recently used first
 _programs: collections.OrderedDict = collections.OrderedDict()
 _pools: dict = {}          # device -> the _Pool new captures join
+_streams: dict = {}        # device -> its capture stream
 # captures made, replays made, programs evicted, bytes the cache holds,
 # bytes the captures added to their pools: read by the benchmark and
 # chip_smoke.py. A call's captures and evictions are also trace.py counters
@@ -111,6 +118,14 @@ class _Pool:
         self.nbytes = 0
 
 
+def capture_stream(dev) -> torch.cuda.Stream:
+    """The side stream that captures on `dev` run on, one per device."""
+    stream = _streams.get(dev)
+    if stream is None:
+        stream = _streams[dev] = torch.cuda.Stream(device=dev)
+    return stream
+
+
 def _nbytes(ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
@@ -127,7 +142,8 @@ class Program:
             before = [w.launches for w in COUNTED]
             self.graph = torch.cuda.CUDAGraph()
             try:
-                with torch.cuda.graph(self.graph, pool=pool.handle):
+                with torch.cuda.graph(self.graph, pool=pool.handle,
+                                      stream=capture_stream(dev)):
                     # graph() emptied the cache as it began: the rise from
                     # here is what this capture adds to the pool
                     r0 = torch.cuda.memory_reserved(dev)

@@ -4,9 +4,11 @@ The input splits into shards of blocks_per_device x block_size bytes; each
 round gives rank k of the mesh shard k, and every rank runs the whole
 block-batch encode (codec.deflate.encode_batch) on its shard on its own
 device, with no traffic between ranks while it computes (the DEFLATE window
-bound makes shards independent). Every rank's encode is launched before
-anything is read back, so ranks on different cards overlap. What the JAX
-package does with collectives the host does here:
+bound makes shards independent). Every rank's encode and crc32 is launched
+before anything is read back, so ranks on different cards overlap, and
+AHEAD more rounds are launched before a round is read, so the cards work
+on them while the host reads, indexes and assembles. What the JAX package
+does with collectives the host does here:
 
   (a) each shard's compressed bit length is read back with its meta (the
       all-gather of the lengths);
@@ -25,6 +27,20 @@ reference's process_allgather of members (scripts/multiproc_smoke.py);
 (b) and (d) then run in every process. One process is the group-of-one
 case of the same loop.
 
+Tracing (trace.py): compress is the request "ShardedDeflater.compress",
+its body the span "shard". Each round is four spans: shard.upload (the
+shard buffers filled and sent up), shard.launch (every rank's encode and
+crc32), shard.read (every rank's crc32 and read_batch read back: blocking
+reads, which wait for the round's work on the rank's card),
+shard.assemble (the member bytes, the fault hook and verify, the index
+entries; and _assemble once after the last round); shard.gather is the
+group's gather. Counters: shard.rounds,
+shard.members (0 in stream mode), shard.ranks (this process's ranks that
+encoded a shard in the call) and shard.retries. The batches' own counters
+(encode.match_ns, encode.code_ns, encode.match_kernel, crc32.kernel,
+d2h.calls) join the same record, so trace.last_request() after a call
+shows what it did on every card.
+
 Two output modes:
   members: each shard becomes a complete gzip member; the concatenated
     members are a valid multi-member gzip file (RFC 1952 §2.2), and decode
@@ -35,11 +51,14 @@ Two output modes:
 """
 from __future__ import annotations
 
+import collections
 import zlib
 
 import numpy as np
+import torch
 import torch.distributed as dist
 
+from .. import trace
 from ..codec import deflate as De
 from ..codec import levels
 from ..codec.inflate import RawInflater
@@ -53,6 +72,10 @@ from .mesh import ProcessMesh, make_mesh, spanning
 
 HALO = De.HALO
 PAD = De.PAD
+# rounds launched past the one being read: the host's reads, index entries
+# and assembly of a round (about as long as a card's encode of a 1 MiB
+# shard at level 6) then run while the cards encode the next rounds
+AHEAD = 2
 
 
 def encode_sharded(data_sh, shard_lens, dict_lens, final_blocks, bl: int,
@@ -75,9 +98,32 @@ def encode_sharded(data_sh, shard_lens, dict_lens, final_blocks, bl: int,
 
 def checksums_sharded(data_sh, shard_lens) -> list:
     """Each shard's crc32, computed on its rank's device (0 for an empty
-    shard)."""
-    return [cs.crc32(d[HALO:HALO + n]) if n else 0
+    shard): on a card launched and not read, a 0-d tensor of
+    ops.checksum.crc32_kernel (read_crc reads it); on the CPU the value."""
+    return [(cs.crc32_kernel(d[HALO:HALO + n]) if d.is_cuda
+             else cs.crc32(d[HALO:HALO + n])) if n else 0
             for d, n in zip(data_sh, shard_lens)]
+
+
+def round_done(data_sh) -> list:
+    """Per rank, an event recorded now on the stream its card works on
+    (None for an empty shard or a CPU rank): a round's reads wait for it,
+    not for the rounds launched after it."""
+    out = []
+    for d in data_sh:
+        ev = None
+        if d is not None and d.is_cuda:
+            ev = torch.cuda.Event()
+            ev.record(torch.cuda.current_stream(d.device))
+        out.append(ev)
+    return out
+
+
+def read_crc(crc) -> int:
+    """The value of one of checksums_sharded's crc32s."""
+    if isinstance(crc, int):
+        return crc
+    return int(_device.to_host(crc)) & 0xFFFFFFFF
 
 
 class ShardedDeflater:
@@ -123,6 +169,7 @@ class ShardedDeflater:
         # corrupted) lets tests kill the result of global rank k's shard
         self.fault_hook = None
         self.retries: list = []
+        self._read_streams: dict = {}     # card -> the stream reads run on
 
     def _shard_ok(self, seg_bytes: bytes, src: np.ndarray, s: int,
                   ln: int) -> bool:
@@ -151,6 +198,8 @@ class ShardedDeflater:
         return enc.compress(src[s:s + ln].tobytes(), dictionary=window,
                             final=final)
 
+    @trace.request("ShardedDeflater.compress")
+    @trace.span("shard")
     def compress(self, data: bytes):
         """Returns (blob, info). members mode: a multi-member gzip file, and
         in info each member's (offset, length, input bytes, index). stream
@@ -182,7 +231,8 @@ class ShardedDeflater:
             raise
         if self.group is not None:
             shards = self._gather(shards, None)
-        return self._assemble(sorted(shards, key=lambda r: r[0]), n)
+        with trace.span("shard.assemble"):
+            return self._assemble(sorted(shards, key=lambda r: r[0]), n)
 
     def _same_input(self, n: int, crc: int) -> None:
         """The first collective: every process must hold the same input."""
@@ -193,6 +243,7 @@ class ShardedDeflater:
                 "the processes of the group compress different inputs "
                 f"(length, crc32 by process: {seen})")
 
+    @trace.span("shard.gather")
     def _gather(self, shards: list, err) -> list:
         """Every process's shard records, on every process; raises in every
         process when one failed (the others' errors travel as text)."""
@@ -220,12 +271,30 @@ class ShardedDeflater:
         ranks = range(self.first, self.first + len(self.mesh))
 
         shards = []
+        launched = collections.deque()      # rounds launched, not read
         for pos in range(0, n, d * shard_bytes):
-            starts = [pos + k * shard_bytes for k in ranks]
-            lens = [max(0, min(n - s, shard_bytes)) for s in starts]
-            dls = [0] * len(starts)
-            fins = [-1] * len(starts)
-            data_sh = [None] * len(starts)
+            trace.count("shard.rounds")
+            launched.append(self._launch_round(arr, pos, shard_bytes, nw))
+            if len(launched) > AHEAD:
+                shards += self._read_round(arr, *launched.popleft(), nch)
+        while launched:
+            shards += self._read_round(arr, *launched.popleft(), nch)
+        # a rank encodes a shard in some round iff it does in the first
+        trace.count("shard.ranks", sum(k * shard_bytes < n for k in ranks))
+        return shards
+
+    def _launch_round(self, arr: np.ndarray, pos: int, shard_bytes: int,
+                      nw: int) -> tuple:
+        """Upload and launch this process's ranks' shards of the round at
+        source offset pos: (starts, lengths, encode handles, crc32s)."""
+        bl, n = self.bl, len(arr)
+        starts = [pos + k * shard_bytes
+                  for k in range(self.first, self.first + len(self.mesh))]
+        lens = [max(0, min(n - s, shard_bytes)) for s in starts]
+        dls = [0] * len(starts)
+        fins = [-1] * len(starts)
+        data_sh = [None] * len(starts)
+        with trace.span("shard.upload"):
             for j, (s, ln) in enumerate(zip(starts, lens)):
                 if not ln:
                     continue
@@ -238,73 +307,108 @@ class ShardedDeflater:
                 if self.mode == "members" or s + ln >= n:
                     fins[j] = (ln - 1) // bl
                 data_sh[j] = _device.upload(buf, self.mesh[j])
-            handles = encode_sharded(data_sh, lens, dls, fins, bl, bpd,
+        with trace.span("shard.launch"):
+            handles = encode_sharded(data_sh, lens, dls, fins, bl, self.bpd,
                                      self.level, nw)
             crcs = checksums_sharded(data_sh, lens)
-            for j, (k, s, ln) in enumerate(zip(ranks, starts, lens)):
-                if ln == 0:
+            done = round_done(data_sh)
+        return starts, lens, handles, crcs, done
+
+    def _read_round(self, arr: np.ndarray, starts: list, lens: list,
+                    handles: list, crcs: list, done: list, nch: int) -> list:
+        """Read a launched round back and make its shards' records. On a
+        card the reads run on a side stream that waits for the round's
+        event: on the card's own stream they would wait for the rounds
+        launched after it too."""
+        got = [None] * len(lens)
+        with trace.span("shard.read"):
+            for j, (h, ln, ev) in enumerate(zip(handles, lens, done)):
+                if not ln:
                     continue
-                total, body, st, sf, ho, gw, an = De.read_batch(
-                    handles[j], bpd, nch)
-                final = s + ln >= n
-                if self.mode == "members" or final:
-                    seg_bytes = body[: (total + 7) // 8].tobytes()
-                else:
-                    # sync flush: 3 zero bits (BFINAL=0, BTYPE=00) + pad +
-                    # 00 00 ff ff; no padding to 4 bytes
-                    seg_bytes = (body[: (total + 3 + 7) // 8].tobytes()
-                                 + b"\x00\x00\xff\xff")
-                if self.fault_hook is not None:
-                    seg_bytes = self.fault_hook(k, seg_bytes)
-                crc, index, retried = crcs[j], None, False
-                if self.verify or self.fault_hook is not None:
-                    probe = seg_bytes if (self.mode == "members" or final) \
-                        else seg_bytes + b"\x03\x00"
-                    if not self._shard_ok(probe, arr, s, ln):
-                        # the failed rank's crc32 is not trusted either: it
-                        # is taken again from the source bytes on the host
-                        seg_bytes, index = self._reencode_shard(
-                            arr, s, ln,
-                            final=(self.mode == "members") or final,
-                            device=self.mesh[j])
-                        crc, retried = zlib.crc32(arr[s:s + ln]), True
-                if self.mode != "members":
-                    index = None
-                elif index is None:
-                    # the default chunk, as the JAX sharded encoder passes
-                    # (ROADMAP C11)
-                    ib, iy, ia = De.index_entries_from_meta(
-                        bl, bpd, sf, ho, gw, an, st, (ln + bl - 1) // bl,
-                        ln, 0, 0)
-                    index = {"block_bits": ib, "block_bytes": iy,
-                             "win": ia, "sync_points": [], "n": ln}
-                shards.append((s, seg_bytes, crc, ln, index, retried))
-        return shards
+                if ev is None:
+                    crcs[j] = read_crc(crcs[j])
+                    got[j] = De.read_batch(h, self.bpd, nch)
+                    continue
+                stream = self._read_streams.get(self.mesh[j])
+                if stream is None:
+                    stream = self._read_streams[self.mesh[j]] = \
+                        torch.cuda.Stream(device=self.mesh[j])
+                with torch.cuda.stream(stream):
+                    stream.wait_event(ev)
+                    crcs[j] = read_crc(crcs[j])
+                    got[j] = De.read_batch(h, self.bpd, nch)
+        with trace.span("shard.assemble"):
+            return [self._shard_record(arr, self.first + j, s, ln, crcs[j],
+                                       got[j], self.mesh[j])
+                    for j, (s, ln) in enumerate(zip(starts, lens)) if ln]
+
+    def _shard_record(self, arr: np.ndarray, k: int, s: int, ln: int,
+                      crc: int, got: tuple, device) -> tuple:
+        """The record of global rank k's shard at source offset s from its
+        read_batch result: its bytes (after the fault hook, and encoded
+        again on `device` where verify finds them wrong), crc32 and
+        index."""
+        bl, bpd, n = self.bl, self.bpd, len(arr)
+        total, body, st, sf, ho, gw, an = got
+        final = s + ln >= n
+        if self.mode == "members" or final:
+            seg_bytes = body[: (total + 7) // 8].tobytes()
+        else:
+            # sync flush: 3 zero bits (BFINAL=0, BTYPE=00) + pad + 00 00
+            # ff ff; no padding to 4 bytes
+            seg_bytes = (body[: (total + 3 + 7) // 8].tobytes()
+                         + b"\x00\x00\xff\xff")
+        if self.fault_hook is not None:
+            seg_bytes = self.fault_hook(k, seg_bytes)
+        index, retried = None, False
+        if self.verify or self.fault_hook is not None:
+            probe = seg_bytes if (self.mode == "members" or final) \
+                else seg_bytes + b"\x03\x00"
+            if not self._shard_ok(probe, arr, s, ln):
+                # the failed rank's crc32 is not trusted either: it is
+                # taken again from the source bytes on the host
+                seg_bytes, index = self._reencode_shard(
+                    arr, s, ln, final=(self.mode == "members") or final,
+                    device=device)
+                crc, retried = zlib.crc32(arr[s:s + ln]), True
+        if self.mode != "members":
+            index = None
+        elif index is None:
+            # the default chunk, as the JAX sharded encoder passes
+            # (ROADMAP C11)
+            ib, iy, ia = De.index_entries_from_meta(
+                bl, bpd, sf, ho, gw, an, st, (ln + bl - 1) // bl, ln, 0, 0)
+            index = {"block_bits": ib, "block_bytes": iy, "win": ia,
+                     "sync_points": [], "n": ln}
+        return (s, seg_bytes, crc, ln, index, retried)
 
     def _assemble(self, shards: list, n: int):
-        """(blob, info) from every shard's record, in shard order."""
-        out = bytearray()
+        """(blob, info) from every shard's record, in shard order. The
+        file is joined from its parts in one copy: it is host work after
+        the cards' last round."""
+        parts = []
         members = []
-        crc_total = 0
+        pos = crc_total = 0
+        trace.count("shard.retries", sum(r[5] for r in shards))
         for s, seg_bytes, crc, ln, index, retried in shards:
             if retried:
                 self.retries.append((s, ln))
             if self.mode == "members":
-                mstart = len(out)
                 hdr = H.emit_gzip_header()
-                out += hdr
-                out += seg_bytes
-                out += H.emit_gzip_trailer(crc, ln)
+                parts += (hdr, seg_bytes, H.emit_gzip_trailer(crc, ln))
+                mlen = len(hdr) + len(seg_bytes) + 8
                 index["header_len"] = len(hdr)
-                members.append((mstart, len(out) - mstart, ln, index))
+                members.append((pos, mlen, ln, index))
+                pos += mlen
             else:
-                out += seg_bytes
+                parts.append(seg_bytes)
                 crc_total = cs.crc32_combine(crc_total, crc, ln)
+        trace.count("shard.members", len(members))
         if self.mode == "members":
-            return bytes(out), {"mode": "members", "members": members,
-                                "n": n}
-        blob = (H.emit_gzip_header() + bytes(out)
-                + H.emit_gzip_trailer(crc_total, n))
+            return b"".join(parts), {"mode": "members", "members": members,
+                                     "n": n}
+        blob = b"".join([H.emit_gzip_header(), *parts,
+                         H.emit_gzip_trailer(crc_total, n)])
         return blob, {"mode": "stream", "n": n}
 
 

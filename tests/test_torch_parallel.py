@@ -17,11 +17,14 @@ import pytest
 import torch
 
 import chip_smoke
+from benchmark import corpus as bcorpus
+from benchmark import members_reference
 from conftest import make_corpus
 from jdeflate_tpu.codec import inflate as jinf
 from jdeflate_tpu.codec import levels as jlevels
 from jdeflate_tpu.parallel import mesh as jmesh
 from jdeflate_tpu.parallel import shard as jshard
+from jdeflate_tpu_torch import trace
 from jdeflate_tpu_torch.codec import inflate as tinf
 from jdeflate_tpu_torch.codec import levels as tlevels
 from jdeflate_tpu_torch.parallel import mesh as tmesh
@@ -302,6 +305,45 @@ def test_two_cards_match_four_ranks_on_one(corpus):
         assert gzip.decompress(two) == data
         if mode == "members":
             assert tshard.decompress_members(two, ti, device="cuda:1") == data
+
+
+@pytest.mark.cuda
+def test_four_cards_match_four_ranks_on_one():
+    """The benchmark's gzip6_members deployment at its shapes (level 6,
+    64 KiB blocks, 16 a shard) on four cards: the blob and info of a
+    ragged payload (10 members in 3 rounds, two ranks empty in the last)
+    equal those of four ranks on cuda:0, the members pass the plain
+    reference (benchmark/members_reference.py) and decode on cuda:3, and
+    each call's record, on the replayed programs of its second call,
+    counts one probe kernel launch a batch (encode.match_kernel), both
+    stages' device time, and its rounds, members and ranks."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 4:
+        pytest.skip("needs 4 CUDA devices")
+    bl, bpd = 1 << 16, 16
+    shard = bl * bpd
+    n = 9 * shard + 12345
+    data = bcorpus.make_payload(n, 2**31 + 24, 0)
+    kw = dict(level=6, block_size=bl, blocks_per_device=bpd, mode="members")
+    got = []
+    for mesh in (tmesh.make_mesh(4), ["cuda:0"] * 4):
+        enc = tshard.ShardedDeflater(mesh=mesh, **kw)
+        enc.compress(data)                  # captures the programs
+        got.append((*enc.compress(data), trace.last_request()))
+    (fb, fi, frec), (ob, oi, orec) = got
+    assert fb == ob
+    _same_info(fi, oi)
+    found = members_reference.check_members(fb, data, shard, fi)
+    assert (found["rejected"], found["differing"], found["info_faults"]) \
+        == (0, 0, [])
+    assert tshard.decompress_members(fb, fi, device="cuda:3") == data
+    members = -(-n // shard)
+    for rec in (frec, orec):
+        c = rec["counters"]
+        assert rec["op"] == "ShardedDeflater.compress"
+        assert c["encode.match_kernel"] == members
+        assert c["encode.match_ns"] > 0 and c["encode.code_ns"] > 0
+        assert (c["shard.rounds"], c["shard.members"], c["shard.ranks"]) \
+            == (-(-n // (4 * shard)), members, 4)
 
 
 def seam_search(lo: int, hi: int) -> list:

@@ -522,3 +522,25 @@ def test_programs_replay_the_eager_results_on_card():
         assert cs.crc32(data.tobytes()) == zlib.crc32(data.tobytes())
         assert cs.adler32(data.tobytes()) == zlib.adler32(data.tobytes())
     assert program.stats["captures"] > 0 and program.stats["replays"] > 0
+
+
+@pytest.mark.cuda
+def test_programs_capture_on_every_card():
+    """A program of one signature captured on cuda:0, then on every other
+    card, in turns: each capture runs on its own device's side stream
+    (program.capture_stream), and each card's replays give its eager
+    results."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs 2 CUDA devices")
+
+    def twice(x):
+        return (x * 2 + 1,)
+
+    for _ in range(2):
+        for k in range(torch.cuda.device_count()):
+            dev = torch.device("cuda", k)
+            x = torch.arange(1000, dtype=torch.int64, device=dev) * (k + 1)
+            (got,) = program.run(twice, (x,))
+            assert got.device == dev and torch.equal(got, x * 2 + 1)
+            assert program.capture_stream(dev).device == dev
+
