@@ -4,7 +4,7 @@ Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
-It builds the nine CUDA kernels from jdeflate_tpu_torch/csrc (all nvcc
+It builds the ten CUDA kernels from jdeflate_tpu_torch/csrc (all nvcc
 processes at once), then drives the port's paths on a 32 MiB Silesia-like
 corpus. Decode: the corpus compressed by zlib at level 6, indexed by
 RawInflater.build_index and decoded on the GPU through the window-walk
@@ -70,12 +70,16 @@ programs cleared, RawDeflater at levels 1, 6 and 9, ZStream("deflate")
 and ShardedDeflater (members and stream, four ranks of cuda:0) run as
 captured CUDA graphs (the card's default, which every earlier phase ran)
 and under program.eager(); streams, indexes and window anchors must be
-byte-equal (sha256) and the match walk's, match probe's and tree
-kernel's launches equal, each level's first batch through its two programs
-(match stage, coding stages) must equal encode_batch in one eager call, its
-stage times are printed, its record's encode.match_kernel and
-encode.tree_kernel must equal the probe's and the tree kernel's launches
-(the tree kernel's: none at levels 1 and 6), and
+byte-equal (sha256) and the match walk's, match probe's, tree
+kernel's and exact extension kernel's launches equal, each level's first
+batch through its two programs (match stage, coding stages) must equal
+encode_batch in one eager call, its stage times are printed, its record's
+encode.match_kernel, encode.tree_kernel and encode.ext_kernel must equal
+the probe's, the tree kernel's and the extension kernel's launches (the
+tree kernel's: none at levels 1 and 6; the extension kernel's: one a
+batch), the extension kernel (csrc/lz77extend.cu) must equal its plain
+loop on the card on that batch's stage-1 inputs (its time, device time,
+bound and the plain loop's time go in its row), and
 RawDeflater.launch (Phase 1) must make no synchronising call under
 torch.cuda.set_sync_debug_mode("error"); walls, graphs captured, capture
 times and adler32's time per call are printed. Decode programs
@@ -138,6 +142,8 @@ PROFILE_MB = 4                # ZStream and sharded paths: profiled slice
 LEVELS_KB = 256               # phase 14: levels 1 and 9, card and CPU
 PROGRAM_MB = 8                # phase 15: levels 1 and 6, ZStream, sharded
 PROGRAM_L9_MB = 2             # phase 15: level 9
+PROFILE_SPIN = 64             # device_ms: throwaway launches opening a session
+PROFILE_TRIES = 3             # device_ms: sessions before it gives up
 # crc32 kernel: a round trip's 1 MiB payload, the largest Silesia file
 CRC_SIZES = (1 << 20, 51_220_480)
 _T0 = time.perf_counter()
@@ -258,22 +264,50 @@ def device_ms(fn, names, reps: int = 5) -> float:
     """Device time per call of the kernels whose names contain one of
     `names`, over reps calls of fn after one warm call (torch.profiler): the
     kernels' own time, without the gaps where the device waits for the
-    host to launch the next call."""
+    host to launch the next call.
+
+    torch.profiler loses the device records of a session's first kernel
+    launches, whatever their kernel (on an H100 with torch 2.11: the first
+    one or two early in this script, the first ten or eleven by phase 15,
+    so all ten of one session's launches), and a sum over reps read low or
+    nothing. So each session opens with PROFILE_SPIN short spin kernels
+    (torch.cuda._sleep) to take that loss, and counts only if every launch
+    after them has its device record (matched by correlation id); else it
+    is profiled again, up to PROFILE_TRIES sessions."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    cuda = torch.autograd.DeviceType.CUDA
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA
-             and any(n in e.key for n in names))
-    if us <= 0:
+    for _ in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(PROFILE_SPIN):
+                torch.cuda._sleep(10_000)
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = list(prof.profiler.kineto_results.events())
+        launches = sorted((e for e in events if e.device_type() != cuda
+                           and "LaunchKernel" in e.name()),
+                          key=lambda e: e.start_ns())[PROFILE_SPIN:]
+        kept = {e.correlation_id(): e for e in events
+                if e.device_type() == cuda}
+        lost = sum(e.correlation_id() not in kept for e in launches)
+        if not lost:
+            break
+        print(f"device_ms {names}: {lost} of the {len(launches)} launches "
+              f"after the spin kernels have no device record; profiling "
+              f"again", flush=True)
+    else:
+        fail(f"the profiler lost the device records of {lost} of "
+             f"{len(launches)} launches for {names} in each of "
+             f"{PROFILE_TRIES} sessions")
+    ns = sum(e.duration_ns() for e in kept.values()
+             if any(n in e.name() for n in names))
+    if ns <= 0:
         fail(f"the profiler saw no device time for {names}")
-    return us / 1e3 / reps
+    return ns / 1e6 / reps
 
 
 def profile_run(what: str, fn, span_s: float) -> None:
@@ -330,8 +364,8 @@ def timed_runs(fn, check):
 def encode_phase(data: bytes, zlib6_len: int, card: str) -> tuple:
     """Phase 7: the level-6 encoder on the card. Returns the match-walk
     kernel's entry of the kernels line, the crc32 kernel's launches in
-    the gzip encode (one: the CRC-32 of the input) and the match probe
-    kernel's (one a batch)."""
+    the gzip encode (one: the CRC-32 of the input), the match probe
+    kernel's and the exact extension kernel's (one a batch each)."""
     import torch
     from jdeflate_tpu_torch.codec import deflate as D
     from jdeflate_tpu_torch.codec import inflate as I
@@ -344,6 +378,7 @@ def encode_phase(data: bytes, zlib6_len: int, card: str) -> tuple:
     # ---- 7a. main path: compress_with_index -> decompress, on the card
     lz77.match_walk.launches = 0
     lz77.match_probe.launches = 0
+    lz77.extend_top.launches = 0
     cs.crc32_kernel.launches = 0
     t0 = time.perf_counter()
     gz, idx, hl = zstrm.compress_with_index(data, format="gzip",
@@ -352,11 +387,14 @@ def encode_phase(data: bytes, zlib6_len: int, card: str) -> tuple:
     first_s = time.perf_counter() - t0
     launches = lz77.match_walk.launches
     probe_launches = lz77.match_probe.launches
+    ext_launches = lz77.extend_top.launches
     crc_launches = cs.crc32_kernel.launches
     if launches != nbatch:
         fail(f"match walk launches {launches} != {nbatch} batches")
     if probe_launches != nbatch:
         fail(f"match probe launches {probe_launches} != {nbatch} batches")
+    if ext_launches != nbatch:
+        fail(f"exact extension launches {ext_launches} != {nbatch} batches")
     if crc_launches != 1:
         fail(f"crc32 kernel launches in the gzip encode {crc_launches} != 1")
     if zlib.decompress(gz, 31) != data:
@@ -386,8 +424,9 @@ def encode_phase(data: bytes, zlib6_len: int, card: str) -> tuple:
     print(f"encode main path: {len(data)} B -> {raw_len} B raw "
           f"(ratio {len(data) / raw_len:.4f}; zlib level 6 {zlib6_len} B, "
           f"{raw_len / zlib6_len:.4f}x zlib), {len(idx['block_bits'])} index "
-          f"entries, match walk and match probe launches {launches}, "
-          f"{probe_launches} = batches, crc32 kernel launches "
+          f"entries, match walk, match probe and exact extension launches "
+          f"{launches}, {probe_launches}, {ext_launches} = batches, crc32 "
+          f"kernel launches "
           f"{crc_launches}; first call {first_s:.2f} s; "
           f"zlib inflate, own windowed decode "
           f"({kinds.count('win')} win batches at err 0; the batches cover "
@@ -459,7 +498,7 @@ def encode_phase(data: bytes, zlib6_len: int, card: str) -> tuple:
             "ms": statistics.mean(ms), "dev_ms": dev_ms,
             "plain_ms": statistics.mean(plain),
             "bound_ms": statistics.mean(bound), "bound_by": "bytes",
-            "library_ms": None}, crc_launches, probe_launches
+            "library_ms": None}, crc_launches, probe_launches, ext_launches
 
 
 def _mean(xs):
@@ -2125,7 +2164,7 @@ def levels_phase(data: bytes, card: str) -> tuple:
     return launches, err
 
 
-def program_phase(data: bytes, card: str) -> dict:
+def program_phase(data: bytes, card: str, ext_enc: int) -> dict:
     """Phase 15: the captured encode and checksum programs
     (jdeflate_tpu_torch/codec/program.py, the card's default, which every
     earlier phase ran) against the eager path (program.eager()), the
@@ -2145,9 +2184,17 @@ def program_phase(data: bytes, card: str) -> dict:
     run. Printed: each path's wall and device span, the graphs captured and
     their capture time (in the first run), the device busy share of the
     level-6 encode of PROFILE_MB MiB in both paths, and adler32's time
-    per call on 1 MiB and 8 MiB in both paths. Returns B3's, the match
-    probe kernel's and the tree kernel's launches by captured run (the
-    tree kernel's by level only)."""
+    per call on 1 MiB and 8 MiB in both paths. At each level the exact
+    extension kernel (csrc/lz77extend.cu) must equal its plain loop
+    (extend_top_ref) on the card on the first batch's stage-1 inputs, and
+    its time per launch (CUDA events over back-to-back launches), device
+    time (profiler), bound (rows, plen and pdist in, the result out, over
+    3.35 TB/s) and the plain loop's time are printed. Returns B3's, the
+    match probe kernel's and the tree kernel's launches by captured run
+    (the tree kernel's by level only) and the exact extension kernel's row:
+    `launches` the main path's (phase 7's level-6 gzip encode, `ext_enc`:
+    one a batch), its launches by captured run in path_launches beside
+    it."""
     import hashlib
     import torch
     from jdeflate_tpu_torch import trace
@@ -2162,14 +2209,15 @@ def program_phase(data: bytes, card: str) -> dict:
         b = x if isinstance(x, bytes) else repr(canonical(x)).encode()
         return hashlib.sha256(b).hexdigest()[:16]
 
-    counted = (lz77.match_walk, lz77.match_probe, huffman.code_lengths)
+    counted = (lz77.match_walk, lz77.match_probe, huffman.code_lengths,
+               lz77.extend_top)
 
     def both(name, fn, out_digest):
         """fn() captured (a first run that captures, then a timed one) and
         eager (a warm run, then a timed one); fail unless the two give the
         same digest and the same launches of the match walk, the match
-        probe and the tree kernel. Returns the captured run's launches of
-        the three."""
+        probe, the tree kernel and the exact extension kernel. Returns the
+        captured run's launches of the four."""
         st0, c0 = dict(program.stats), capture_s()
         _, first, _ = one_run(fn)
         caps = program.stats["captures"] - st0["captures"]
@@ -2187,24 +2235,34 @@ def program_phase(data: bytes, card: str) -> dict:
         dg, edg = out_digest(res), out_digest(eres)
         if dg != edg or n_cap != n_eager:
             fail(f"phase 15 {name}: captured {dg} ({n_cap} match walk, "
-                 f"probe and tree launches) != eager {edg} ({n_eager})")
+                 f"probe, tree and extension launches) != eager {edg} "
+                 f"({n_eager})")
         print(f"program {name} ({card}): captured wall {wall * 1e3:.1f} ms, "
               f"span {span * 1e3:.1f} ms; eager wall {ewall * 1e3:.1f} ms, "
               f"span {espan * 1e3:.1f} ms ({ewall / wall:.2f}x); first "
               f"captured run {first * 1e3:.1f} ms with {caps} graphs "
               f"captured, first calls (eager run and capture) "
               f"{cap_s * 1e3:.1f} ms; sha256 {dg} equal; match "
-              f"walk, probe and tree launches {n_cap} in both", flush=True)
+              f"walk, probe, tree and extension launches {n_cap} in both",
+              flush=True)
         return n_cap
 
     program.clear()
-    launches, probes, trees = {}, {}, {}
+    launches, probes, trees, ext_args = {}, {}, {}, {}
+    exts = {"gzip_encode": ext_enc}
+    ext_row = {"name": "lz77extend", "route": "cuda",
+               "source": "jdeflate_tpu_torch/csrc/lz77extend.cu",
+               "replaces": None, "levels": [1, 6, 9], "launches": ext_enc,
+               "path_launches": exts, "check_launches": 0,
+               "max_abs_err": 0, "ms": [], "dev_ms": [], "plain_ms": [],
+               "bound_ms": [], "selected": [], "bound_by": "bytes",
+               "library_ms": None}
     kw = dict(block_size=1 << 16, batch=16)
     for level, mb in ((1, PROGRAM_MB), (6, PROGRAM_MB), (9, PROGRAM_L9_MB)):
         part = data[:mb << 20]
         enc = D.RawDeflater(level=level, device="cuda", **kw)
         key = f"program_level{level}"
-        launches[key], probes[key], trees[key] = both(
+        launches[key], probes[key], trees[key], exts[key] = both(
             f"RawDeflater level {level}, {mb} MiB",
             lambda: enc.compress(part),
             lambda r: (digest(r[0]), digest(r[1]), digest(r[1]["win"])))
@@ -2231,6 +2289,13 @@ def program_phase(data: bytes, card: str) -> dict:
             fail(f"level {level}: encode.tree_kernel "
                  f"{stage.get('encode.tree_kernel')}, the tree kernel's "
                  f"launches {trees[key]}")
+        if stage.get("encode.ext_kernel") != exts[key] \
+                or exts[key] != len(enc.last_calls):
+            fail(f"level {level}: encode.ext_kernel "
+                 f"{stage.get('encode.ext_kernel')}, the extension kernel's "
+                 f"launches {exts[key]}, {len(enc.last_calls)} batches")
+        ext_args[level] = ext_stage_inputs(enc.last_calls[0], statics)
+        ext_check(ext_row, level, ext_args[level])
         print(f"level {level}: two-stage batch equals encode_batch in one "
               f"call; captured run encode.match_ns "
               f"{stage['encode.match_ns'] / 1e6 / mb:.2f} ms/MiB, "
@@ -2261,6 +2326,7 @@ def program_phase(data: bytes, card: str) -> dict:
     with program.eager():
         profile_slice("program: level-6 encode, eager",
                       lambda: enc.compress(part[:PROFILE_MB << 20]))
+    ext_timing(ext_row, ext_args, card)
 
     def zdeflate():
         pieces = []
@@ -2270,7 +2336,8 @@ def program_phase(data: bytes, card: str) -> dict:
             z.write(part[pos:pos + ZS_WRITE])
         z.flush(final=True)
         return b"".join(pieces), z.crc32
-    launches["program_zstream"], probes["program_zstream"], _ = both(
+    launches["program_zstream"], probes["program_zstream"], _, \
+        exts["program_zstream"] = both(
         f"ZStream deflate, {PROGRAM_MB} MiB", zdeflate,
         lambda r: (digest(r[0]), r[1] == zlib.crc32(part)
                    or fail("phase 15 ZStream: crc32 differs from zlib's")))
@@ -2278,7 +2345,7 @@ def program_phase(data: bytes, card: str) -> dict:
     for mode in ("members", "stream"):
         senc = shard.ShardedDeflater(mesh=mesh, level=6, mode=mode)
         key = f"program_sharded_{mode}"
-        launches[key], probes[key], _ = both(
+        launches[key], probes[key], _, exts[key] = both(
             f"sharded {mode}, {PROGRAM_MB} MiB", lambda: senc.compress(part),
             lambda r: (digest(r[0]), digest(r[1])))
 
@@ -2301,7 +2368,77 @@ def program_phase(data: bytes, card: str) -> dict:
           f"{program.stats['captures']} captures, first calls (eager run "
           f"and capture) {capture_s():.1f} s, "
           f"{program.stats['replays']} replays this run", flush=True)
-    return launches, probes, trees
+    return launches, probes, trees, ext_row
+
+
+def ext_stage_inputs(args, statics) -> tuple:
+    """The arguments (ext, plen, pdist, topd) that one encode batch's match
+    stage hands lz77.extend_top, recorded in an eager run of the stage with
+    the plain loop in the kernel's place (the kernel counts its launches
+    through its module name, so it cannot be wrapped)."""
+    from jdeflate_tpu_torch.codec import deflate as D
+    from jdeflate_tpu_torch.codec import program
+    from jdeflate_tpu_torch.ops import lz77
+
+    rec = []
+
+    def keep(*a):
+        rec.append(tuple(x.clone() for x in a))
+        return lz77.extend_top_ref(*a)
+    real = lz77.extend_top
+    lz77.extend_top = keep
+    try:
+        with program.eager():
+            D.encode_batch(*args, *statics, stage="match")
+    finally:
+        lz77.extend_top = real
+    if len(rec) != 1:
+        fail(f"the match stage called extend_top {len(rec)} times, not once")
+    return rec[0]
+
+
+def ext_check(row: dict, level: int, args: tuple) -> None:
+    """The exact extension kernel against its plain loop on one batch's
+    stage-1 inputs `args`; the share of positions it selects into `row`."""
+    import torch
+    from jdeflate_tpu_torch.ops import lz77
+
+    _, plen, pdist, topd = args
+    before = lz77.extend_top.launches
+    got = lz77.extend_top(*args)
+    want = lz77.extend_top_ref(*args)
+    row["check_launches"] += lz77.extend_top.launches - before
+    err = max_abs_err((got,), (want,))
+    row["max_abs_err"] = max(row["max_abs_err"], err)
+    if err:
+        fail(f"exact extension at level {level}: the kernel differs from "
+             f"the plain loop by {err}")
+    sel = int(((plen > 0) & torch.isin(pdist, topd)).sum())
+    row["selected"].append(sel / plen.numel())
+
+
+def ext_timing(row: dict, args_by_level: dict, card: str) -> None:
+    """The exact extension kernel's time per launch (CUDA events over
+    back-to-back launches), device time (device_ms), bound and its plain
+    loop's time on each level's stage-1 inputs, into `row`."""
+    from jdeflate_tpu_torch.ops import lz77
+
+    for (level, args), sel in zip(args_by_level.items(), row["selected"]):
+        ext, plen, _, topd = args
+        row["ms"].append(gpu_ms(lambda: lz77.extend_top(*args), 20))
+        row["dev_ms"].append(device_ms(lambda: lz77.extend_top(*args),
+                                       ("extend_kernel",), 10))
+        row["plain_ms"].append(gpu_ms(lambda: lz77.extend_top_ref(*args), 1))
+        moved = ext.numel() + plen.numel() * 8 * 3 + topd.numel() * 8
+        row["bound_ms"].append(moved / HBM_BYTES_PER_S * 1e3)
+        print(f"lz77extend ({card}) level {level} (T {topd.numel()}) on "
+              f"{tuple(ext.shape)} rows: = the plain loop; "
+              f"{row['ms'][-1]:.4f} ms/launch, device "
+              f"{row['dev_ms'][-1]:.4f} ms/launch, bound "
+              f"{row['bound_ms'][-1]:.4f} ms "
+              f"({100 * row['bound_ms'][-1] / row['dev_ms'][-1]:.1f}% of "
+              f"the roofline); plain loop {row['plain_ms'][-1]:.2f} ms; "
+              f"{100 * sel:.1f}% of positions selected", flush=True)
 
 
 def decode_program_phase(data: bytes, raw: bytes, idx: dict,
@@ -2849,7 +2986,7 @@ def main() -> None:
     t0 = time.perf_counter()
     built = _cuda.build(["walk", "expand", "lz77walk", "expand5seed",
                          "expand5resolve", "expand1", "crc32", "lz77probe",
-                         "huffman2q"])
+                         "huffman2q", "lz77extend"])
     build_s = time.perf_counter() - t0
     for name, (secs, log) in built.items():
         regs = [ln.strip() for ln in log.splitlines() if "registers" in ln]
@@ -3026,7 +3163,8 @@ def main() -> None:
     profile_run("decode", lambda: dec.decompress(raw, index=idx), span)
 
     stamp("encode phase")
-    enc_kernel, crc_enc, probe_enc = encode_phase(data, len(raw), card)
+    enc_kernel, crc_enc, probe_enc, ext_enc = encode_phase(data, len(raw),
+                                                           card)
     stamp("crc32 phase")
     crc_kernel = crc32_phase(card, {"gzip_decode": crc_dec,
                                     "gzip_encode": crc_enc})
@@ -3053,7 +3191,8 @@ def main() -> None:
     print(f"phase 14: {time.perf_counter() - t0:.1f} s", flush=True)
     stamp("program phase")
     t0 = time.perf_counter()
-    pg_launches, pg_probes, pg_trees = program_phase(data, card)
+    pg_launches, pg_probes, pg_trees, ext_kernel = program_phase(data, card,
+                                                                 ext_enc)
     print(f"phase 15: {time.perf_counter() - t0:.1f} s", flush=True)
     stamp("tree kernel phase")
     tree_kernel = tree_kernel_phase(card, pg_trees)
@@ -3096,6 +3235,7 @@ def main() -> None:
         crc_kernel,
         probe_kernel,
         tree_kernel,
+        ext_kernel,
     ]
     # phase 16's captured decodes: each kernel's launches, through replays
     for k in kernels:

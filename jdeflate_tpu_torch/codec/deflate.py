@@ -774,8 +774,9 @@ def launch_batch(data, start_block: int, total_len: int, dict_len: int,
     on its (length, dist), on the caller's stream; the four scalars travel
     as one small upload that does not synchronise, and the open request
     counts encode.match_kernel by the probe kernel's launches in the match
-    stage and encode.tree_kernel by the two-queue kernel's in the coding
-    stages (program.launched: on a replay those its capture recorded).
+    stage, encode.ext_kernel by the exact extension kernel's there and
+    encode.tree_kernel by the two-queue kernel's in the coding stages
+    (program.launched: on a replay those its capture recorded).
     events: on a card three timing events recorded on that stream before,
     between and after the two (read_batch reads them), else None."""
     dev = data.device
@@ -791,6 +792,9 @@ def launch_batch(data, start_block: int, total_len: int, dict_len: int,
     probes = program.launched(lz77.match_probe)
     if probes:
         trace.count("encode.match_kernel", probes)
+    exts = program.launched(lz77.extend_top)
+    if exts:
+        trace.count("encode.ext_kernel", exts)
     if events is not None:
         events[1].record(stream)
     handle = program.run(_code_handle, (data, sc, length, dist),

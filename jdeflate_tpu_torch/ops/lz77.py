@@ -9,7 +9,8 @@ src/deflator.c:1977-2101); the parse is greedy for levels 1-5 and lazy for
 sequential walk in match space: the kernel csrc/lz77walk.cu
 (match_walk), with match_walk_ref its plain version. The chain walk itself
 is the kernel csrc/lz77probe.cu (match_probe), with match_probe_ref its
-plain version.
+plain version, and the exact extension's top-distance runs the kernel
+csrc/lz77extend.cu (extend_top), with extend_top_ref its plain version.
 
 Arrays keep the reference's flat batch layout: (B, row) rows with row =
 halo + bl + pad. u32 words and hashes live in int64 tensors masked to 32
@@ -190,6 +191,88 @@ def match_probe(ext, skey, valid_from, k: int, probe_words: int):
 match_probe.launches = 0
 
 
+def top_distances(plen, pdist, T: int):
+    """The T distances with the most boundary-capped mass (a length > 0,
+    a multiple of 16, under 258) over every 4th flat position of (B, nh)
+    int64 (plen, pdist): (T,) int64 on their device, distinct, most first,
+    ties and zero-count bins by the lower distance, 0 counted as none."""
+    dev = plen.device
+    stuck0 = (plen > 0) & (plen % 16 == 0) & (plen < 258)
+    dws = torch.where(stuck0, pdist, 0).reshape(-1)[::4]
+    # distances are at most WINDOW_SIZE: a histogram of fixed length (a
+    # bincount would read its length back from the device)
+    hist = torch.zeros(C.WINDOW_SIZE + 1, dtype=torch.int64, device=dev)
+    hist.scatter_add_(0, dws, torch.ones_like(dws))
+    hist[0].fill_(0)
+    # lax.top_k breaks ties by lower index: a stable descending sort does too
+    return torch.sort(hist, descending=True, stable=True).indices[:T]
+
+
+def extend_top_ref(ext, plen, pdist, topd):
+    """Plain version of the exact extension's stage 1 (any device, no host
+    reads).
+
+    ext: (B, row) u8 rows; plen, pdist: (B, nh) int64, nh <= row; topd:
+    (T,) int64 distinct distances. For each d of topd, every position j
+    with pdist == d and a length > 0 takes the suffix run of
+    ext[j] == ext[j - d] (to the first mismatch or the row's end; 0 where
+    j < d), capped at MAX_MATCH. Returns the new plen, (B, nh) int64."""
+    B, row = ext.shape
+    nh = plen.shape[1]
+    dev = ext.device
+    e64 = ext.to(torch.int64)
+    col_row = torch.arange(row, dtype=torch.int64, device=dev)[None, :]
+    BIG = 1 << 20
+    pl2 = plen
+    for t in range(topd.shape[0]):
+        d = topd[t]
+        # jnp.roll(ext, d)[j] = ext[j - d] for j >= d (the rest is masked)
+        src = torch.clamp(col_row - d, min=0).expand(B, row)
+        eq = (e64 == e64.gather(1, src)) & (col_row >= d)
+        nz = torch.where(eq, BIG, col_row)
+        nnm = torch.flip(torch.cummin(torch.flip(nz, [1]), 1).values, [1])
+        runlen = torch.clamp(nnm, max=row) - col_row
+        runlen = torch.clamp(runlen[:, :nh], max=C.MAX_MATCH)
+        sel = (pdist == d) & (pl2 > 0)
+        pl2 = torch.where(sel, runlen, pl2)
+    return pl2
+
+
+def extend_top(ext, plen, pdist, topd):
+    """The exact extension's stage 1: csrc/lz77extend.cu on a CUDA tensor,
+    extend_top_ref on a CPU tensor; same arguments and result. The kernel
+    takes each position once: the distances of topd are distinct, so at
+    most one of the plain loop's passes selects it. Counts its kernel
+    launches in extend_top.launches."""
+    if ext.device.type == "cpu":
+        return extend_top_ref(ext, plen, pdist, topd)
+    from . import _cuda
+    dev = ext.device
+    B, row = ext.shape
+    nh = plen.shape[1]
+    T = topd.shape[0]
+    _cuda.check_tensor(ext, "ext", torch.uint8, dev)
+    _cuda.check_tensor(plen, "plen", torch.int64, dev, (B, nh))
+    _cuda.check_tensor(pdist, "pdist", torch.int64, dev, (B, nh))
+    _cuda.check_tensor(topd, "topd", torch.int64, dev, (T,))
+    if nh > row or T > 64:
+        raise ValueError(f"exact extension: {nh} positions over rows of "
+                         f"{row} B, {T} distances")
+    fn = _cuda.entry("lz77extend", "jd_match_extend", [ctypes.c_void_p] * 5
+                     + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    out = torch.empty_like(plen)
+    with torch.cuda.device(dev):
+        rc = fn(ext.data_ptr(), plen.data_ptr(), pdist.data_ptr(),
+                topd.data_ptr(), out.data_ptr(), B, row, nh, T,
+                _cuda.stream_ptr())
+    _cuda.check(rc, "exact extension kernel launch")
+    extend_top.launches += 1
+    return out
+
+
+extend_top.launches = 0
+
+
 def find_matches_batch(ext: torch.Tensor, block_len: torch.Tensor,
                        valid_from: torch.Tensor, halo: int, bl: int, pad: int,
                        k: int, exact_ext: bool = True, ext_top: int = 8,
@@ -205,12 +288,12 @@ def find_matches_batch(ext: torch.Tensor, block_len: torch.Tensor,
     csrc/lz77probe.cu on a card, match_probe_ref's k shifted compares of
     co-sorted prefix words on the CPU), with prefixes of 4 * probe_words
     bytes. Lengths then extend by the link rule LCP(i,d) = s + LCP(i+s,d),
-    a top-T distance pass of suffix runs, and compacted gather-compare
-    rounds.
+    the suffix runs of the top-T distances (extend_top: the kernel
+    csrc/lz77extend.cu on a card, extend_top_ref's T passes on the CPU),
+    and compacted gather-compare rounds.
     """
     B = ext.shape[0]
     dev = ext.device
-    row = halo + bl + pad
     nh = halo + bl
     e64 = ext.to(torch.int64)
     w0, skey = probe_keys(e64, nh)
@@ -271,33 +354,9 @@ def find_matches_batch(ext: torch.Tensor, block_len: torch.Tensor,
         return finish(plen)
 
     # Stage 1: for each of the T distances with the most boundary-capped
-    # mass, the suffix run of eq[j] = (ext[j] == ext[j-d]) is the exact LCP
-    # at every position whose match distance is d
-    T = ext_top
-    pl2 = plen
-    stuck0 = (pl2 > 0) & (pl2 % 16 == 0) & (pl2 < 258)
-    dws = torch.where(stuck0, pdist, 0).reshape(-1)[::4]
-    # distances are at most WINDOW_SIZE: a histogram of fixed length (a
-    # bincount would read its length back from the device)
-    hist = torch.zeros(C.WINDOW_SIZE + 1, dtype=torch.int64, device=dev)
-    hist.scatter_add_(0, dws, torch.ones_like(dws))
-    hist[0].fill_(0)
-    # lax.top_k breaks ties by lower index: a stable descending sort does too
-    topd = torch.sort(hist, descending=True, stable=True).indices[:T]
-    col_row = torch.arange(row, dtype=torch.int64, device=dev)[None, :]
-    BIG = 1 << 20
-    for t in range(T):
-        d = topd[t]
-        # jnp.roll(ext, d)[j] = ext[j - d] for j >= d (the rest is masked)
-        src = torch.clamp(col_row - d, min=0).expand(B, row)
-        eq = (e64 == e64.gather(1, src)) & (col_row >= d)
-        nz = torch.where(eq, BIG, col_row)
-        nnm = torch.flip(torch.cummin(torch.flip(nz, [1]), 1).values, [1])
-        runlen = torch.clamp(nnm, max=row) - col_row
-        runlen = torch.clamp(runlen[:, :nh], max=C.MAX_MATCH)
-        sel = (pdist == d) & (pl2 > 0)
-        pl2 = torch.where(sel, runlen, pl2)
-    plen = pl2
+    # mass, the suffix run of ext[j] == ext[j - d] is the exact LCP at every
+    # position whose match distance is d
+    plen = extend_top(ext, plen, pdist, top_distances(plen, pdist, ext_top))
 
     # Stage 2: compacted gather-compare rounds for the residue. The
     # reference's loop stops when no boundary survivor remains, at most
