@@ -424,15 +424,19 @@ class RawInflater:
         self.capture_calls = False
         self.last_calls: list = []
 
+    @trace.request("RawInflater.build_index")
+    @trace.span("decode.index")
     def build_index(self, raw: bytes, dictionary: bytes = b"") -> dict:
         """Index any RFC 1951 stream for parallel decode: one sequential
         native pass recording block offsets and the 32-bit window anchors,
-        the same index contract the encoder emits."""
+        the same index contract the encoder emits. Counts its entries in
+        decode.index_entries."""
         if native.available():
             out, recs, endbit = native.inflate(raw, dictionary,
                                                want_index=True)
         else:
             out, recs, endbit = hi.inflate_raw(raw, dictionary)
+        trace.count("decode.index_entries", len(recs))
         return {
             "block_bits": [r.bit_offset for r in recs],
             "block_bytes": [r.out_offset for r in recs],
@@ -631,10 +635,14 @@ class RawInflater:
         # window from it on the device
         W_pad = _bucket((len(raw) >> 2) + 18, 1 << 13)
         work, n_out = self._plan(raw, index, dictionary, W_pad)
+        kinds = collections.Counter(kind for kind, _ in work)
+        trace.count("decode.win_batches", kinds["win"])
+        trace.count("decode.stored_items", kinds["stored"])
         inputs = self._upload(raw, work, dictionary, W_pad)
         plan, res = self._launch(work, inputs)
         out = self._finish(raw, dictionary, plan, res, n_out)
         card, stored = card_bytes(self.last_stats)
+        trace.count("decode.card_bytes", card)
         if len(out) > card + stored:
             trace.count("decode.native_bytes", len(out) - card - stored)
         return out

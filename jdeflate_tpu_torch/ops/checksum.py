@@ -417,8 +417,11 @@ def crc32(data, init: int = 0, device="cuda") -> int:
     return int(_device.to_host(crc32_kernel(flat, init))) & _M32
 
 
+@trace.span("adler32")
 def adler32(data, init: int = 1, device="cuda") -> int:
     """adler32 of a byte buffer, computed on `device` (or on the device of a
-    uint8 tensor)."""
+    uint8 tensor). Counts the bytes in the open request's adler32.bytes."""
+    trace.count("adler32.bytes",
+                data.numel() if isinstance(data, torch.Tensor) else len(data))
     return _checksum(_adler32_program, data, init, _ADLER_CHUNK, False,
                      device)

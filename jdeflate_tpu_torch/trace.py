@@ -1,7 +1,8 @@
 """The port's spans and counters, and one record per public call.
 
 Each public entry point (zstrm.compress, compress_with_index, decompress,
-RawDeflater.compress, RawInflater.decompress) runs inside request(op). The
+RawDeflater.compress, RawInflater.decompress, RawInflater.build_index,
+ShardedDeflater.compress) runs inside request(op). The
 outermost request of a thread gives the call a fresh integer id; an entry
 called inside an open request joins it (a crc32 inside zstrm.decompress is
 part of the decode). When the outermost request closes it leaves this
