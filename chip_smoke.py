@@ -4,7 +4,7 @@ Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
-It builds the ten CUDA kernels from jdeflate_tpu_torch/csrc (all nvcc
+It builds the eleven CUDA kernels from jdeflate_tpu_torch/csrc (all nvcc
 processes at once), then drives the port's paths on a 32 MiB Silesia-like
 corpus. Decode: the corpus compressed by zlib at level 6, indexed by
 RawInflater.build_index and decoded on the GPU through the window-walk
@@ -24,7 +24,11 @@ bound, the plain loop's time and the candidates its walk visits per
 position go in its row. Tree kernel: the two-queue Huffman kernel
 (csrc/huffman2q.cu) on the (512, 286) and (512, 30) rows of one 1 MiB
 level-9 batch must equal the plain loop on the card; its time, device
-time, bound and the plain loop's time go in its row. Encode:
+time, bound and the plain loop's time go in its row. Scan kernel: the
+running scan kernel (csrc/rowscan.cu) on every input that code_batch hands
+scan.running in one 1 MiB batch at levels 6 and 9 must equal the plain
+route on the card; its time, device time, bound, the plain route's time
+and one torch.cummax / torch.cummin call's go in its row. Encode:
 compress_with_index at level 6 with 64 KiB blocks in batches of 16 (the
 bench's round trip) through the match-walk and match-probe kernels (one
 launch of each a batch); the gzip stream must
@@ -74,10 +78,11 @@ byte-equal (sha256) and the match walk's, match probe's, tree
 kernel's and exact extension kernel's launches equal, each level's first
 batch through its two programs (match stage, coding stages) must equal
 encode_batch in one eager call, its stage times are printed, its record's
-encode.match_kernel, encode.tree_kernel and encode.ext_kernel must equal
-the probe's, the tree kernel's and the extension kernel's launches (the
-tree kernel's: none at levels 1 and 6; the extension kernel's: one a
-batch), the extension kernel (csrc/lz77extend.cu) must equal its plain
+encode.match_kernel, encode.tree_kernel, encode.ext_kernel and
+encode.scan_kernel must equal the probe's, the tree kernel's, the
+extension kernel's and the scan kernel's launches (the tree kernel's: none
+at levels 1 and 6; the extension kernel's: one a batch; the scan
+kernel's: 7 a batch, 9 at level 9), the extension kernel (csrc/lz77extend.cu) must equal its plain
 loop on the card on that batch's stage-1 inputs (its time, device time,
 bound and the plain loop's time go in its row), and
 RawDeflater.launch (Phase 1) must make no synchronising call under
@@ -543,6 +548,90 @@ def card_share(runs: list, n: int) -> str:
     host = sum(card_bytes(r)[1] for r in runs)
     return (f"the card produced {card} B ({100 * card / n:.1f}%), stored "
             f"copies {host} B, the native decoder {n - card - host} B")
+
+
+def scan_kernel_phase(card: str, path_launches: dict) -> dict:
+    """The running scan kernel (csrc/rowscan.cu) on the coding stages' own
+    inputs of one 1 MiB batch at levels 6 and 9 (16 blocks of 64 KiB,
+    Silesia-like bytes): every tensor that
+    code_batch hands scan.running (the match walk's next candidate, the
+    groups and their ends, the precode runs, the pack's word bounds, the
+    window anchors), recorded in an eager encode with the plain route in
+    the kernel's place. It must equal the plain route (running_ref) on the
+    card; then, at each site, its time per launch (CUDA events over
+    back-to-back launches), its device time (profiler), its bound (8 bytes
+    in and 8 out an element over 3.35 TB/s), the plain route's time and
+    one torch.cummax / torch.cummin call's; and each level's sums over its
+    batch's sites. Returns the kernel's row: `launches` the main path's
+    (phase 15's captured level-6 encode, `path_launches`: 7 a batch),
+    `check_launches` this phase's own checking calls."""
+    import torch
+    from benchmark import corpus
+    from jdeflate_tpu_torch.codec import deflate as D
+    from jdeflate_tpu_torch.codec import program
+    from jdeflate_tpu_torch.ops import scan
+
+    real = scan.running
+    row = {"name": "rowscan", "route": "cuda",
+           "source": "jdeflate_tpu_torch/csrc/rowscan.cu",
+           "replaces": None, "sites": [],
+           "launches": path_launches.get("program_level6", 0),
+           "path_launches": dict(path_launches), "check_launches": 0,
+           "max_abs_err": 0, "ms": [], "dev_ms": [], "plain_ms": [],
+           "bound_ms": [], "bound_by": "bytes", "library_ms": []}
+    payload = corpus.make_payload(1 << 20, 2121, 0, corpus.MIX)
+    for level in (6, 9):
+        rec = []
+
+        def keep(x, op, reverse=False):
+            rec.append((x.clone(), op, reverse))
+            return scan.running_ref(x, op, reverse)
+        scan.running = keep
+        try:
+            with program.eager():
+                D.RawDeflater(level=level, block_size=1 << 16, batch=16,
+                              device="cuda").compress(payload)
+        finally:
+            scan.running = real
+        want_n = 9 if level >= 8 else 7
+        if len(rec) != want_n:
+            fail(f"scan kernel: a level-{level} batch made {len(rec)} "
+                 f"running scans, not {want_n}")
+        sums = [0.0] * 5
+        for x, op, rev in rec:
+            before = real.launches
+            got = real(x, op, rev)
+            want = scan.running_ref(x, op, rev)
+            row["check_launches"] += real.launches - before
+            err = max_abs_err((got,), (want,))
+            row["max_abs_err"] = max(row["max_abs_err"], err)
+            if err:
+                fail(f"scan kernel on {tuple(x.shape)} {op} reverse {rev}: "
+                     f"differs from the plain route by {err}")
+            lib = torch.cummax if op == "max" else torch.cummin
+            vals = (gpu_ms(lambda: real(x, op, rev), 20),
+                    device_ms(lambda: real(x, op, rev), ("rowscan",), 10),
+                    x.numel() * 16 / HBM_BYTES_PER_S * 1e3,
+                    gpu_ms(lambda: scan.running_ref(x, op, rev), 5),
+                    gpu_ms(lambda: lib(x, -1), 5))
+            for key, v in zip(("ms", "dev_ms", "bound_ms", "plain_ms",
+                               "library_ms"), vals):
+                row[key].append(v)
+            sums = [a + b for a, b in zip(sums, vals)]
+            row["sites"].append([level, list(x.shape), op, rev])
+            print(f"rowscan ({card}) level {level} {op}"
+                  f"{' reversed' if rev else ''} on {tuple(x.shape)}: = the "
+                  f"plain route; {vals[0]:.4f} "
+                  f"ms/launch, device {vals[1]:.4f} ms/launch, bound "
+                  f"{vals[2]:.4f} ms ({vals[1] / vals[2]:.2f}x the bound); "
+                  f"plain route {vals[3]:.4f} ms, torch.cum{op} "
+                  f"{vals[4]:.4f} ms", flush=True)
+        print(f"rowscan ({card}) level {level}, the {len(rec)} scans of a "
+              f"1 MiB batch: {sums[0]:.4f} ms back to back, device "
+              f"{sums[1]:.4f} ms, bound {sums[2]:.4f} ms; plain route "
+              f"{sums[3]:.4f} ms, torch.cummax/cummin alone {sums[4]:.4f} ms",
+              flush=True)
+    return row
 
 
 def profile_slice(what: str, fn) -> None:
@@ -2189,19 +2278,21 @@ def program_phase(data: bytes, card: str, ext_enc: int) -> dict:
     (extend_top_ref) on the card on the first batch's stage-1 inputs, and
     its time per launch (CUDA events over back-to-back launches), device
     time (profiler), bound (rows, plen and pdist in, the result out, over
-    3.35 TB/s) and the plain loop's time are printed. Returns B3's, the
-    match probe kernel's and the tree kernel's launches by captured run
-    (the tree kernel's by level only) and the exact extension kernel's row:
+    3.35 TB/s) and the plain loop's time are printed. Each level's record
+    must count encode.scan_kernel equal to the running scan kernel's
+    launches, 7 a batch at levels 1 and 6 and 9 at level 9. Returns B3's,
+    the match probe kernel's and the tree kernel's launches by captured run
+    (the tree kernel's by level only), the exact extension kernel's row:
     `launches` the main path's (phase 7's level-6 gzip encode, `ext_enc`:
     one a batch), its launches by captured run in path_launches beside
-    it."""
+    it, and the running scan kernel's launches by captured run."""
     import hashlib
     import torch
     from jdeflate_tpu_torch import trace
     from jdeflate_tpu_torch.codec import deflate as D
     from jdeflate_tpu_torch.codec import program
     from jdeflate_tpu_torch.ops import checksum as cs
-    from jdeflate_tpu_torch.ops import huffman, lz77
+    from jdeflate_tpu_torch.ops import huffman, lz77, scan
     from jdeflate_tpu_torch.parallel import shard
     from jdeflate_tpu_torch.stream import zstrm
 
@@ -2210,14 +2301,14 @@ def program_phase(data: bytes, card: str, ext_enc: int) -> dict:
         return hashlib.sha256(b).hexdigest()[:16]
 
     counted = (lz77.match_walk, lz77.match_probe, huffman.code_lengths,
-               lz77.extend_top)
+               lz77.extend_top, scan.running)
 
     def both(name, fn, out_digest):
         """fn() captured (a first run that captures, then a timed one) and
         eager (a warm run, then a timed one); fail unless the two give the
         same digest and the same launches of the match walk, the match
-        probe, the tree kernel and the exact extension kernel. Returns the
-        captured run's launches of the four."""
+        probe, the tree kernel, the exact extension kernel and the running
+        scan kernel. Returns the captured run's launches of the five."""
         st0, c0 = dict(program.stats), capture_s()
         _, first, _ = one_run(fn)
         caps = program.stats["captures"] - st0["captures"]
@@ -2235,7 +2326,7 @@ def program_phase(data: bytes, card: str, ext_enc: int) -> dict:
         dg, edg = out_digest(res), out_digest(eres)
         if dg != edg or n_cap != n_eager:
             fail(f"phase 15 {name}: captured {dg} ({n_cap} match walk, "
-                 f"probe, tree and extension launches) != eager {edg} "
+                 f"probe, tree, extension and scan launches) != eager {edg} "
                  f"({n_eager})")
         print(f"program {name} ({card}): captured wall {wall * 1e3:.1f} ms, "
               f"span {span * 1e3:.1f} ms; eager wall {ewall * 1e3:.1f} ms, "
@@ -2243,12 +2334,13 @@ def program_phase(data: bytes, card: str, ext_enc: int) -> dict:
               f"captured run {first * 1e3:.1f} ms with {caps} graphs "
               f"captured, first calls (eager run and capture) "
               f"{cap_s * 1e3:.1f} ms; sha256 {dg} equal; match "
-              f"walk, probe, tree and extension launches {n_cap} in both",
+              f"walk, probe, tree, extension and scan launches {n_cap} in "
+              f"both",
               flush=True)
         return n_cap
 
     program.clear()
-    launches, probes, trees, ext_args = {}, {}, {}, {}
+    launches, probes, trees, ext_args, scans = {}, {}, {}, {}, {}
     exts = {"gzip_encode": ext_enc}
     ext_row = {"name": "lz77extend", "route": "cuda",
                "source": "jdeflate_tpu_torch/csrc/lz77extend.cu",
@@ -2262,7 +2354,7 @@ def program_phase(data: bytes, card: str, ext_enc: int) -> dict:
         part = data[:mb << 20]
         enc = D.RawDeflater(level=level, device="cuda", **kw)
         key = f"program_level{level}"
-        launches[key], probes[key], trees[key], exts[key] = both(
+        launches[key], probes[key], trees[key], exts[key], scans[key] = both(
             f"RawDeflater level {level}, {mb} MiB",
             lambda: enc.compress(part),
             lambda r: (digest(r[0]), digest(r[1]), digest(r[1]["win"])))
@@ -2294,6 +2386,13 @@ def program_phase(data: bytes, card: str, ext_enc: int) -> dict:
             fail(f"level {level}: encode.ext_kernel "
                  f"{stage.get('encode.ext_kernel')}, the extension kernel's "
                  f"launches {exts[key]}, {len(enc.last_calls)} batches")
+        per_batch = 9 if level >= 8 else 7
+        if stage.get("encode.scan_kernel") != scans[key] \
+                or scans[key] != per_batch * len(enc.last_calls):
+            fail(f"level {level}: encode.scan_kernel "
+                 f"{stage.get('encode.scan_kernel')}, the scan kernel's "
+                 f"launches {scans[key]}, {len(enc.last_calls)} batches of "
+                 f"{per_batch}")
         ext_args[level] = ext_stage_inputs(enc.last_calls[0], statics)
         ext_check(ext_row, level, ext_args[level])
         print(f"level {level}: two-stage batch equals encode_batch in one "
@@ -2337,7 +2436,7 @@ def program_phase(data: bytes, card: str, ext_enc: int) -> dict:
         z.flush(final=True)
         return b"".join(pieces), z.crc32
     launches["program_zstream"], probes["program_zstream"], _, \
-        exts["program_zstream"] = both(
+        exts["program_zstream"], scans["program_zstream"] = both(
         f"ZStream deflate, {PROGRAM_MB} MiB", zdeflate,
         lambda r: (digest(r[0]), r[1] == zlib.crc32(part)
                    or fail("phase 15 ZStream: crc32 differs from zlib's")))
@@ -2345,7 +2444,7 @@ def program_phase(data: bytes, card: str, ext_enc: int) -> dict:
     for mode in ("members", "stream"):
         senc = shard.ShardedDeflater(mesh=mesh, level=6, mode=mode)
         key = f"program_sharded_{mode}"
-        launches[key], probes[key], _, exts[key] = both(
+        launches[key], probes[key], _, exts[key], scans[key] = both(
             f"sharded {mode}, {PROGRAM_MB} MiB", lambda: senc.compress(part),
             lambda r: (digest(r[0]), digest(r[1])))
 
@@ -2368,7 +2467,7 @@ def program_phase(data: bytes, card: str, ext_enc: int) -> dict:
           f"{program.stats['captures']} captures, first calls (eager run "
           f"and capture) {capture_s():.1f} s, "
           f"{program.stats['replays']} replays this run", flush=True)
-    return launches, probes, trees, ext_row
+    return launches, probes, trees, ext_row, scans
 
 
 def ext_stage_inputs(args, statics) -> tuple:
@@ -2986,7 +3085,7 @@ def main() -> None:
     t0 = time.perf_counter()
     built = _cuda.build(["walk", "expand", "lz77walk", "expand5seed",
                          "expand5resolve", "expand1", "crc32", "lz77probe",
-                         "huffman2q", "lz77extend"])
+                         "huffman2q", "lz77extend", "rowscan"])
     build_s = time.perf_counter() - t0
     for name, (secs, log) in built.items():
         regs = [ln.strip() for ln in log.splitlines() if "registers" in ln]
@@ -3191,11 +3290,13 @@ def main() -> None:
     print(f"phase 14: {time.perf_counter() - t0:.1f} s", flush=True)
     stamp("program phase")
     t0 = time.perf_counter()
-    pg_launches, pg_probes, pg_trees, ext_kernel = program_phase(data, card,
-                                                                 ext_enc)
+    pg_launches, pg_probes, pg_trees, ext_kernel, pg_scans = program_phase(
+        data, card, ext_enc)
     print(f"phase 15: {time.perf_counter() - t0:.1f} s", flush=True)
     stamp("tree kernel phase")
     tree_kernel = tree_kernel_phase(card, pg_trees)
+    stamp("scan kernel phase")
+    scan_kernel = scan_kernel_phase(card, pg_scans)
     stamp("decode program phase")
     t0 = time.perf_counter()
     dp_launches = decode_program_phase(data, raw, idx, card)
@@ -3236,6 +3337,7 @@ def main() -> None:
         probe_kernel,
         tree_kernel,
         ext_kernel,
+        scan_kernel,
     ]
     # phase 16's captured decodes: each kernel's launches, through replays
     for k in kernels:

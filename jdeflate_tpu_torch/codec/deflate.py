@@ -6,6 +6,8 @@ Each batch of fixed-size blocks runs: hash + sorted-bucket candidate probes
 csrc/lz77walk.cu) -> per-chunk symbol frequencies -> entropy-DP block
 splitting -> batched Huffman build -> precode RLE -> per-item (value, nbits)
 -> one exclusive scan bit pack -> window anchors for the parallel decoder.
+Every running max or min of these stages is ops/scan.py::running (kernel
+csrc/rowscan.cu on a CUDA device).
 Blocks inside a batch are bit-contiguous; batch seams are byte-aligned
 sync-flush blocks (the reference's DEFLT_FLUSH framing,
 src/deflator.c:609-654) padded to 4 bytes, which the decoder's 32-bit
@@ -31,7 +33,7 @@ import torch
 
 from .. import trace
 from ..formats import constants as C
-from ..ops import bitpack, huffman, lz77
+from ..ops import bitpack, huffman, lz77, scan
 from ..utils import device as _device
 from . import levels as levels_mod
 from . import program
@@ -113,10 +115,6 @@ def _item_layout(nch: int, CS: int, dev: torch.device):
             torch.as_tensor(kind > 0, device=dev))
 
 
-def _rev_cummin(x):
-    return torch.flip(torch.cummin(torch.flip(x, [-1]), -1).values, [-1])
-
-
 def _rle_emit(comb: torch.Tensor):
     """Per-position precode RLE symbols, computed positionally, over (G, n)
     combined code lengths. Semantics of the reference's sequential RLE with
@@ -129,10 +127,11 @@ def _rle_emit(comb: torch.Tensor):
                       comb[:, :-1]], 1)
     is_start = comb != prev
     BIG = 1 << 20
-    startpos = torch.cummax(torch.where(is_start, idx, -1), 1).values
-    nxt_start = _rev_cummin(torch.cat(
+    startpos = scan.running(torch.where(is_start, idx, -1), "max")
+    nxt_start = scan.running(torch.cat(
         [torch.where(is_start, idx, BIG)[:, 1:],
-         torch.full((G, 1), n, dtype=_I64, device=dev)], 1))
+         torch.full((G, 1), n, dtype=_I64, device=dev)], 1), "min",
+        reverse=True)
     r = nxt_start - startpos                   # whole-run length
     q = idx - startpos                         # offset within run
     v = comb
@@ -482,10 +481,10 @@ def code_batch(data: torch.Tensor, start_block, total_len, dict_len,
         return start_f
 
     # group-of-chunk, and the end chunk (exclusive) of each start's group
-    gs = torch.cummax(torch.where(start_f, ci, 0), 1).values
+    gs = scan.running(torch.where(start_f, ci, 0), "max")
     srt = torch.where(start_f, ci, nch)
-    nxt = _rev_cummin(torch.cat([srt[:, 1:], torch.full(
-        (B, 1), nch, dtype=_I64, device=dev)], 1))
+    nxt = scan.running(torch.cat([srt[:, 1:], torch.full(
+        (B, 1), nch, dtype=_I64, device=dev)], 1), "min", reverse=True)
 
     def gsel(P, idx):
         return P.gather(1, idx[:, :, None].expand(-1, -1, P.shape[2]))
@@ -691,7 +690,7 @@ def code_batch(data: torch.Tensor, start_block, total_len, dict_len,
     # anchor a = offset of the FIRST symbol item in window a: first-in-window
     # items are where aidx rises past every earlier symbol's; the scatter-min
     # needs no sorted-index assumption
-    lsa = torch.cummax(torch.where(sym_mask, aidx, -1), 1).values
+    lsa = scan.running(torch.where(sym_mask, aidx, -1), "max")
     lsa_prev = torch.cat([torch.full((B, 1), -1, dtype=_I64, device=dev),
                           lsa[:, :-1]], 1)
     fw = sym_mask & (aidx > lsa_prev) & (aidx >= 0) & (aidx < A_BLK)
@@ -774,9 +773,10 @@ def launch_batch(data, start_block: int, total_len: int, dict_len: int,
     on its (length, dist), on the caller's stream; the four scalars travel
     as one small upload that does not synchronise, and the open request
     counts encode.match_kernel by the probe kernel's launches in the match
-    stage, encode.ext_kernel by the exact extension kernel's there and
-    encode.tree_kernel by the two-queue kernel's in the coding stages
-    (program.launched: on a replay those its capture recorded).
+    stage, encode.ext_kernel by the exact extension kernel's there,
+    encode.tree_kernel by the two-queue kernel's and encode.scan_kernel by
+    the running scan kernel's in the coding stages (program.launched: on a
+    replay those its capture recorded).
     events: on a card three timing events recorded on that stream before,
     between and after the two (read_batch reads them), else None."""
     dev = data.device
@@ -802,6 +802,9 @@ def launch_batch(data, start_block: int, total_len: int, dict_len: int,
     trees = program.launched(huffman.code_lengths)
     if trees:
         trace.count("encode.tree_kernel", trees)
+    scans = program.launched(scan.running)
+    if scans:
+        trace.count("encode.scan_kernel", scans)
     if events is not None:
         events[2].record(stream)
     return (*handle, events)

@@ -64,12 +64,13 @@ import threading
 import torch
 
 from .. import trace
-from ..ops import expand, expand2, expand5, huffman, lz77, walk
+from ..ops import expand, expand2, expand5, huffman, lz77, scan, walk
 
 # kernel wrappers whose `launches` count the launches a replay makes
 COUNTED = (lz77.match_probe, lz77.extend_top, lz77.match_walk,
-           huffman.code_lengths, walk.walk_checked, expand2.expand_tokens,
-           expand5.seed_plane, expand5.resolve, expand.expand_matches)
+           huffman.code_lengths, scan.running, walk.walk_checked,
+           expand2.expand_tokens, expand5.seed_plane, expand5.resolve,
+           expand.expand_matches)
 # bytes the programs of one device may hold: static inputs and the growth
 # of the pools they were captured into. The dense decode's programs hold
 # gigabytes (chip_smoke.py phase 16 prints each branch's pool growth); a

@@ -16,6 +16,8 @@ from __future__ import annotations
 
 import torch
 
+from . import scan
+
 M32 = 0xFFFFFFFF
 
 
@@ -83,12 +85,12 @@ def pack(lo, hi, nbits, num_words: int):
     c1 = torch.cumsum(w1, 0)
     c2 = torch.cumsum(w2, 0)
     # last item index per destination word (words >= num_words dropped into
-    # a spare slot), empty words filled by cummax
+    # a spare slot), empty words filled by a running max
     idx = torch.arange(N, dtype=torch.int64, device=dev)
     bnd = torch.full((num_words + 1,), -1, dtype=torch.int64, device=dev)
     bnd.scatter_reduce_(0, torch.where(word < num_words, word, num_words),
                         idx, reduce="amax")
-    bnd = torch.cummax(bnd[:num_words], 0).values
+    bnd = scan.running(bnd[:num_words], "max")
     has = bnd >= 0
     bi = torch.clamp(bnd, min=0)
     zw = torch.zeros(num_words, dtype=torch.int64, device=dev)

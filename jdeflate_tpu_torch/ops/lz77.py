@@ -24,6 +24,7 @@ import ctypes
 import torch
 
 from ..formats import constants as C
+from . import scan
 
 HASH_MULT = 0x1E35A7BD            # cf. deflator.c:1946
 HASH_BITS = 15
@@ -425,7 +426,7 @@ def walk_inputs(length, take, block_len, bl: int):
     pos = torch.arange(bl, dtype=torch.int64, device=dev)[None, :]
     cand = torch.where(take & (pos < block_len.to(torch.int64)[:, None]),
                        pos, bl)
-    cnext = torch.flip(torch.cummin(torch.flip(cand, [1]), 1).values, [1])
+    cnext = scan.running(cand, "min", reverse=True)
     padn = (-(bl + 1)) % 128 + 1
     i32 = torch.int32
     cnextp = torch.cat([cnext.to(i32), torch.full((B, padn), bl, dtype=i32,

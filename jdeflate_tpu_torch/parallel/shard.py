@@ -38,8 +38,9 @@ group's gather. Counters: shard.rounds,
 shard.members (0 in stream mode), shard.ranks (this process's ranks that
 encoded a shard in the call) and shard.retries. The batches' own counters
 (encode.match_ns, encode.code_ns, encode.match_kernel, encode.ext_kernel,
-crc32.kernel, d2h.calls) join the same record, so trace.last_request()
-after a call shows what it did on every card.
+encode.tree_kernel, encode.scan_kernel, crc32.kernel, d2h.calls) join the
+same record, so trace.last_request() after a call shows what it did on
+every card.
 
 Two output modes:
   members: each shard becomes a complete gzip member; the concatenated
