@@ -147,6 +147,9 @@ PROFILE_MB = 4                # ZStream and sharded paths: profiled slice
 LEVELS_KB = 256               # phase 14: levels 1 and 9, card and CPU
 PROGRAM_MB = 8                # phase 15: levels 1 and 6, ZStream, sharded
 PROGRAM_L9_MB = 2             # phase 15: level 9
+# phase 15: the encode stages' counters of codec/deflate.py read_batch
+STAGE_COUNTERS = ("encode.match_ns", "encode.launch_wait_ns",
+                  "encode.code_ns", "encode.entropy_ns")
 PROFILE_SPIN = 64             # device_ms: throwaway launches opening a session
 PROFILE_TRIES = 3             # device_ms: sessions before it gives up
 # crc32 kernel: a round trip's 1 MiB payload, the largest Silesia file
@@ -2266,8 +2269,9 @@ def program_phase(data: bytes, card: str, ext_enc: int) -> dict:
     paths, and so are the match walk's launches (replays count theirs).
     Every encode batch is two programs, the match stage and the coding
     stages: at each level the first batch's two-stage handle equals
-    encode_batch in one eager call, and each level prints its captured
-    run's encode.match_ns and encode.code_ns per MiB (the request record).
+    encode_batch in one eager call (the clock stamps at the end of its meta
+    left out), and each level prints its captured run's four stage
+    counters (STAGE_COUNTERS, the request record) per batch.
     Phase 1 of RawDeflater (launch) runs under
     torch.cuda.set_sync_debug_mode("error") in both paths, after a warm
     run. Printed: each path's wall and device span, the graphs captured and
@@ -2363,14 +2367,14 @@ def program_phase(data: bytes, card: str, ext_enc: int) -> dict:
         stage = trace.last_request()["counters"]
         enc.capture_calls = False
         statics = enc.call_statics
-        two = D.launch_batch(*enc.last_calls[0], *statics)[:3]
+        two = D.unstamped(D.launch_batch(*enc.last_calls[0], *statics))
         with program.eager():
-            one = D.batch_handle(D.encode_batch(*enc.last_calls[0], *statics))
+            one = D.unstamped(D.batch_handle(D.encode_batch(
+                *enc.last_calls[0], *statics)))
         if not all(torch.equal(a, b) for a, b in zip(two, one, strict=True)):
             fail(f"level {level}: the two-stage batch differs from "
                  f"encode_batch in one call")
-        if not all(stage.get(k, 0) > 0 for k in ("encode.match_ns",
-                                                 "encode.code_ns")):
+        if not all(stage.get(k, 0) > 0 for k in STAGE_COUNTERS):
             fail(f"level {level}: no stage times in the record: {stage}")
         if stage.get("encode.match_kernel") != probes[key]:
             fail(f"level {level}: encode.match_kernel "
@@ -2395,11 +2399,11 @@ def program_phase(data: bytes, card: str, ext_enc: int) -> dict:
                  f"{per_batch}")
         ext_args[level] = ext_stage_inputs(enc.last_calls[0], statics)
         ext_check(ext_row, level, ext_args[level])
+        nb = len(enc.last_calls)
         print(f"level {level}: two-stage batch equals encode_batch in one "
-              f"call; captured run encode.match_ns "
-              f"{stage['encode.match_ns'] / 1e6 / mb:.2f} ms/MiB, "
-              f"encode.code_ns {stage['encode.code_ns'] / 1e6 / mb:.2f} "
-              f"ms/MiB", flush=True)
+              f"call; captured run, ms a batch of {nb}: "
+              + ", ".join(f"{k} {stage[k] / 1e6 / nb:.3f}"
+                          for k in STAGE_COUNTERS), flush=True)
         # Phase 1 alone, warm, with every synchronising CUDA call an error
         for mode in ("captured", "eager"):
             with program.eager() if mode == "eager" \
@@ -3085,7 +3089,7 @@ def main() -> None:
     t0 = time.perf_counter()
     built = _cuda.build(["walk", "expand", "lz77walk", "expand5seed",
                          "expand5resolve", "expand1", "crc32", "lz77probe",
-                         "huffman2q", "lz77extend", "rowscan"])
+                         "huffman2q", "lz77extend", "rowscan", "stamp"])
     build_s = time.perf_counter() - t0
     for name, (secs, log) in built.items():
         regs = [ln.strip() for ln in log.splitlines() if "registers" in ln]

@@ -33,7 +33,7 @@ import torch
 
 from .. import trace
 from ..formats import constants as C
-from ..ops import bitpack, huffman, lz77, scan
+from ..ops import bitpack, huffman, lz77, scan, stamp
 from ..utils import device as _device
 from . import levels as levels_mod
 from . import program
@@ -46,6 +46,10 @@ _SENT = 19                    # run-breaking sentinel code length
 CHUNK = 8192                  # splitter granularity (bytes of input)
 _SPLIT_HDR_C0 = 120.0
 _SPLIT_HDR_C1 = 5.5
+# the card's clock stamps of a batch at the end of its meta (read_batch):
+# the match program's first and last node, the coding program's first,
+# the entropy stage's entry and exit, the coding program's last
+STAMPS = 6
 
 # Precode RLE extra-bit counts per symbol (16 -> 2, 17 -> 3, 18 -> 7).
 _P_EXTRA = np.zeros(19, np.int64)
@@ -399,11 +403,14 @@ def encode_batch(data: torch.Tensor, start_block: int, total_len: int,
 def code_batch(data: torch.Tensor, start_block, total_len, dict_len,
                final_block, length: torch.Tensor, dist: torch.Tensor,
                bl: int, batch: int, level: int, num_words: int,
-               fixed_codes: bool = False, stage: str = ""):
+               fixed_codes: bool = False, stage: str = "", stamps=None):
     """The coding stages of encode_batch, from match_batch's (length, dist)
     of the same batch: the parse, the match walk, frequencies, the split,
     the trees, the pack and the window anchors. Arguments and result as
-    encode_batch's (stage from "walk" on)."""
+    encode_batch's (stage from "walk" on). stamps: a (STAMPS,) int64
+    tensor whose slots 3 and 4 get the card's clock as the entropy stage
+    (the groups, their frequencies and _block_entropy) starts and ends
+    (ops/stamp.py); none where None or on the CPU."""
     cfg = levels_mod.get_level(level)
     dev = data.device
     nch = _nch(bl, cfg.chunk)
@@ -479,6 +486,7 @@ def code_batch(data: torch.Tensor, start_block, total_len, dict_len,
         start_f[:, 0].fill_(True)
     if stage == "split":
         return start_f
+    stamp.stamp(stamps, 3)
 
     # group-of-chunk, and the end chunk (exclusive) of each start's group
     gs = scan.running(torch.where(start_f, ci, 0), "max")
@@ -497,6 +505,7 @@ def code_batch(data: torch.Tensor, start_block, total_len, dict_len,
     hdr_lo, hdr_nb, el, er, edl, edr, eob_lo, eob_nb = _block_entropy(
         lfreq_g.reshape(B * nch, NL), dfreq_g.reshape(B * nch, ND),
         live_g.reshape(B * nch), cfg, fixed_codes)
+    stamp.stamp(stamps, 4)
     if stage == "entropy":
         return hdr_lo, hdr_nb, el, er, edl, edr
     hdr_lo = hdr_lo.reshape(B, nch, HDR_ITEMS)
@@ -736,68 +745,83 @@ def index_entries_from_meta(bl: int, batch: int, startf, hdr_off, gwin,
     return index_bits, index_bytes, win_out
 
 
-def batch_handle(res):
+def batch_handle(res, stamps=None):
     """What the host reads of one encode_batch result: (words, meta,
     wanch), with the small per-block meta (total bits, stored flags, start
-    flags, header offsets, window counts) in one device tensor, so a
+    flags, header offsets, window counts) and the batch's STAMPS clock
+    stamps (zeros where `stamps` is None) in one device tensor, so a
     readback moves it at once."""
     words, total, _, _, start_f, hdr_off, gwin, wanch, stored = res
+    if stamps is None:
+        stamps = torch.zeros(STAMPS, dtype=_I64, device=words.device)
     meta = torch.cat([total.reshape(1), stored.to(_I64),
                       start_f.reshape(-1).to(_I64), hdr_off.reshape(-1),
-                      gwin.reshape(-1)])
+                      gwin.reshape(-1), stamps])
     return words, meta, wanch
+
+
+def unstamped(handle):
+    """A batch_handle without the clock stamps at the end of its meta: what
+    two runs of one batch give alike."""
+    words, meta, wanch = handle
+    return words, meta[:-STAMPS], wanch
 
 
 def _match_handle(data, scalars, bl: int, batch: int, level: int):
     """match_batch(...) with the per-batch scalars (start_block, total_len,
     dict_len, final_block) read from `scalars`, a (4,) int64 tensor on
-    data's device: the match stage's captured program per shape."""
-    return match_batch(data, *scalars.unbind(), bl, batch, level)
+    data's device: the match stage's captured program per shape. Returns
+    (length, dist, stamps): on a card the program's first and last node
+    stamp the card's clock into slots 0 and 1 of stamps, a (STAMPS,) int64
+    tensor (ops/stamp.py); on the CPU it is zeros."""
+    stamps = stamp.slots(STAMPS, data.device)
+    stamp.stamp(stamps, 0)
+    length, dist = match_batch(data, *scalars.unbind(), bl, batch, level)
+    stamp.stamp(stamps, 1)
+    return length, dist, stamps
 
 
-def _code_handle(data, scalars, length, dist, bl: int, batch: int,
+def _code_handle(data, scalars, length, dist, stamps, bl: int, batch: int,
                  level: int, num_words: int, fixed_codes: bool):
-    """batch_handle(code_batch(...)), scalars as in _match_handle: the
-    coding stages' captured program per shape."""
-    return batch_handle(code_batch(data, *scalars.unbind(), length, dist,
-                                   bl, batch, level, num_words, fixed_codes))
+    """batch_handle(code_batch(...)), scalars as in _match_handle, on its
+    (length, dist, stamps): the coding stages' captured program per shape.
+    On a card its first node stamps slot 2, the entropy stage slots 3 and
+    4, and its last node the last slot of meta."""
+    stamp.stamp(stamps, 2)
+    words, meta, wanch = batch_handle(code_batch(
+        data, *scalars.unbind(), length, dist, bl, batch, level, num_words,
+        fixed_codes, stamps=stamps), stamps)
+    stamp.stamp(meta, meta.shape[0] - 1)
+    return words, meta, wanch
 
 
 def launch_batch(data, start_block: int, total_len: int, dict_len: int,
                  final_block: int, bl: int, batch: int, level: int,
                  num_words: int, fixed_codes: bool = False):
     """Launch one batch's encode_batch on data's device and return its
-    batch_handle and its stage events: (words, meta, wanch, events);
-    nothing is read back. On a card the encode is two replayed programs of
-    its shape (codec/program.py), the match stage, then the coding stages
-    on its (length, dist), on the caller's stream; the four scalars travel
-    as one small upload that does not synchronise, and the open request
-    counts encode.match_kernel by the probe kernel's launches in the match
-    stage, encode.ext_kernel by the exact extension kernel's there,
-    encode.tree_kernel by the two-queue kernel's and encode.scan_kernel by
-    the running scan kernel's in the coding stages (program.launched: on a
-    replay those its capture recorded).
-    events: on a card three timing events recorded on that stream before,
-    between and after the two (read_batch reads them), else None."""
+    batch_handle (words, meta, wanch); nothing is read back. On a card the
+    encode is two replayed programs of its shape (codec/program.py), the
+    match stage, then the coding stages on its (length, dist, stamps), on
+    the caller's stream; the four scalars travel as one small upload that
+    does not synchronise, and the open request counts encode.match_kernel
+    by the probe kernel's launches in the match stage, encode.ext_kernel
+    by the exact extension kernel's there, encode.tree_kernel by the
+    two-queue kernel's and encode.scan_kernel by the running scan
+    kernel's in the coding stages (program.launched: on a replay those its
+    capture recorded). The two programs stamp the card's clock into the
+    end of meta (_match_handle, _code_handle), which read_batch reads."""
     dev = data.device
     sc = _device.upload(np.array([start_block, total_len, dict_len,
                                   final_block], np.int64), dev)
-    events = None
-    if dev.type == "cuda":
-        stream = torch.cuda.current_stream(dev)
-        events = tuple(torch.cuda.Event(enable_timing=True)
-                       for _ in range(3))
-        events[0].record(stream)
-    length, dist = program.run(_match_handle, (data, sc), (bl, batch, level))
+    length, dist, stamps = program.run(_match_handle, (data, sc),
+                                       (bl, batch, level))
     probes = program.launched(lz77.match_probe)
     if probes:
         trace.count("encode.match_kernel", probes)
     exts = program.launched(lz77.extend_top)
     if exts:
         trace.count("encode.ext_kernel", exts)
-    if events is not None:
-        events[1].record(stream)
-    handle = program.run(_code_handle, (data, sc, length, dist),
+    handle = program.run(_code_handle, (data, sc, length, dist, stamps),
                          (bl, batch, level, num_words, fixed_codes))
     trees = program.launched(huffman.code_lengths)
     if trees:
@@ -805,22 +829,23 @@ def launch_batch(data, start_block: int, total_len: int, dict_len: int,
     scans = program.launched(scan.running)
     if scans:
         trace.count("encode.scan_kernel", scans)
-    if events is not None:
-        events[2].record(stream)
-    return (*handle, events)
+    return handle
 
 
-def _count_stages(events) -> None:
-    """A batch's stage times into the open request: encode.match_ns, the
-    elapsed device time from the first event to the second on their
-    stream (the match stage's work and any wait of the device inside it),
-    and encode.code_ns, from the second to the third. Called once the
-    batch's meta has come back: that read followed the three events on
-    the stream they were recorded on, so they have completed and reading
-    them waits for nothing."""
-    e0, e1, e2 = events
-    trace.count("encode.match_ns", round(e0.elapsed_time(e1) * 1e6))
-    trace.count("encode.code_ns", round(e1.elapsed_time(e2) * 1e6))
+def _count_stages(s) -> None:
+    """A batch's device times from its clock stamps `s` (the last STAMPS
+    values of its meta, ns) into the open request: encode.match_ns, the
+    match program from its first node to its last; encode.launch_wait_ns,
+    from there to the coding program's first node (the match program's
+    output clones, the coding program's input copies, and the card's wait
+    for the host to launch it); encode.code_ns, the coding program from
+    its first node to its last; encode.entropy_ns, the entropy stage
+    inside it."""
+    s = [int(v) for v in s]
+    trace.count("encode.match_ns", s[1] - s[0])
+    trace.count("encode.launch_wait_ns", s[2] - s[1])
+    trace.count("encode.code_ns", s[5] - s[2])
+    trace.count("encode.entropy_ns", s[4] - s[3])
 
 
 def read_batch(handle, batch: int, nch: int):
@@ -829,12 +854,12 @@ def read_batch(handle, batch: int, nch: int):
     counts, window anchors). Only the produced words and the used prefix
     of each block's anchor row move. Words are u32 values in int64, so
     they are narrowed to little-endian u32 before the bytes are taken. On
-    a card the batch's stage times join the open request's counters
-    (_count_stages)."""
-    words, meta_dev, wanch_dev, events = handle
+    a card the batch's stage times, from the stamps that came back with
+    its meta, join the open request's counters (_count_stages)."""
+    words, meta_dev, wanch_dev = handle
     m = _device.to_host(meta_dev)
-    if events is not None:
-        _count_stages(events)
+    if meta_dev.is_cuda:
+        _count_stages(m[-STAMPS:])
     total = int(m[0])
     o = 1
     stored_h = m[o:o + batch]

@@ -49,6 +49,14 @@ the device current at its first use: a capture on another card then runs
 its ops on that card's streams while the first card's stream captures,
 and CUDA refuses them (cudaErrorStreamCaptureUnsupported).
 
+Tracing (trace.py). A replay's host work, the input copies, the launch
+and the output clones, is the span "program.replay", inside whatever span
+its caller is in (encode.launch, decode.launch, adler32); each replay adds
+its graph's node count, read once at capture (cudaGraphGetNodes,
+ops/stamp.py graph_nodes), to the counter "program.nodes". The graph is
+captured with keep_graph=True, so that its cudaGraph_t can be read, and
+instantiated at once.
+
 Kernel launch counts stay true under replay: a wrapper counts a launch
 where its Python runs, and a replay runs no Python, so the launches a
 capture records for each wrapper in COUNTED are added to its count on
@@ -64,7 +72,8 @@ import threading
 import torch
 
 from .. import trace
-from ..ops import expand, expand2, expand5, huffman, lz77, scan, walk
+from ..ops import (expand, expand2, expand5, huffman, lz77, scan, stamp,
+                   walk)
 
 # kernel wrappers whose `launches` count the launches a replay makes
 COUNTED = (lz77.match_probe, lz77.extend_top, lz77.match_walk,
@@ -89,7 +98,8 @@ _streams: dict = {}        # device -> its capture stream
 # of its record (program.captures, program.evictions; not its replays, a
 # count per program call that program.stats already keeps); the seconds of
 # a first call (its eager run and its capture) are the span
-# "program.capture"
+# "program.capture", those of a replay the span "program.replay", and a
+# replay's graph nodes the counter "program.nodes"
 stats = {"captures": 0, "replays": 0, "evictions": 0, "bytes": 0,
          "pool_growth": 0}
 
@@ -134,14 +144,15 @@ def _nbytes(ts) -> int:
 class Program:
     """fn captured at one input signature on one device: static input
     buffers, the graph, its output tensors, the kernel launches it makes
-    per replay, and the bytes it holds outside its pool (its inputs)."""
+    per replay, its node count, and the bytes it holds outside its pool
+    (its inputs)."""
 
     def __init__(self, fn, inputs: tuple, statics: tuple, pool: _Pool):
         dev = inputs[0].device
         with torch.cuda.device(dev):
             self.ins = tuple(torch.empty_like(x) for x in inputs)
             before = [w.launches for w in COUNTED]
-            self.graph = torch.cuda.CUDAGraph()
+            self.graph = torch.cuda.CUDAGraph(keep_graph=True)
             try:
                 with torch.cuda.graph(self.graph, pool=pool.handle,
                                       stream=capture_stream(dev)):
@@ -155,6 +166,8 @@ class Program:
                                  for w, b in zip(COUNTED, before)]
                 for w, b in zip(COUNTED, before):
                     w.launches = b
+            self.nodes = stamp.graph_nodes(self.graph.raw_cuda_graph())
+            self.graph.instantiate()
         if not isinstance(outs, tuple) or not all(
                 isinstance(o, torch.Tensor) for o in outs):
             raise TypeError("a captured function returns a tuple of tensors")
@@ -168,11 +181,12 @@ class Program:
         trace.count("program.captures")
 
     def __call__(self, inputs: tuple) -> tuple:
-        with torch.cuda.device(self.dev):
+        with trace.span("program.replay"), torch.cuda.device(self.dev):
             for buf, x in zip(self.ins, inputs):
                 buf.copy_(x)
             self.graph.replay()
             res = tuple(o.clone() for o in self.outs)
+        trace.count("program.nodes", self.nodes)
         for w, n in zip(COUNTED, self.launches):
             w.launches += n
         _local.launched = dict(zip(COUNTED, self.launches))

@@ -37,8 +37,9 @@ entries; and _assemble once after the last round); shard.gather is the
 group's gather. Counters: shard.rounds,
 shard.members (0 in stream mode), shard.ranks (this process's ranks that
 encoded a shard in the call) and shard.retries. The batches' own counters
-(encode.match_ns, encode.code_ns, encode.match_kernel, encode.ext_kernel,
-encode.tree_kernel, encode.scan_kernel, crc32.kernel, d2h.calls) join the
+(encode.match_ns, encode.launch_wait_ns, encode.code_ns, encode.entropy_ns,
+encode.match_kernel, encode.ext_kernel, encode.tree_kernel,
+encode.scan_kernel, crc32.kernel, d2h.calls, program.nodes) join the
 same record, so trace.last_request() after a call shows what it did on
 every card.
 

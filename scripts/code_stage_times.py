@@ -12,13 +12,19 @@ payload (16 blocks of 64 KiB) with its match stage's (length, dist):
    replayed, the CUDA-event median of 10 replays; an exit runs every stage
    before it, so the difference from the previous exit is that stage's
    time (each program's input copies and output clones included);
-2. the whole coding program replayed 10 times under torch.profiler: its
+2. the program's own stage counters: the batch launched and read back
+   10 times as the encoder does (launch_batch, read_batch) inside a trace
+   request, the median of encode.match_ns, encode.launch_wait_ns,
+   encode.code_ns and encode.entropy_ns (the card's clock stamped inside
+   the two programs), printed beside the graph-difference entropy stage of
+   1, which includes its program's copies and clones;
+3. the whole coding program replayed 10 times under torch.profiler: its
    device busy time per batch, the running scans' device time per batch
    (PyTorch's cummax / cummin kernel, "with_indices", or csrc/rowscan.cu's
    kernels) and its top device operations.
 
-It runs on a checkout without ops/scan.py too, so parent and change can be
-compared in one call.
+It runs on a checkout without ops/scan.py, or without the stamps (2 is
+then skipped), too, so parent and change can be compared in one call.
 """
 import statistics
 import subprocess
@@ -29,6 +35,7 @@ from torch.profiler import ProfilerActivity, profile
 
 sys.path.insert(0, ".")
 from benchmark import corpus  # noqa: E402
+from jdeflate_tpu_torch import trace  # noqa: E402
 from jdeflate_tpu_torch.codec import deflate as D  # noqa: E402
 from jdeflate_tpu_torch.codec import program  # noqa: E402
 
@@ -36,6 +43,8 @@ BL, BATCH = 1 << 16, 16
 STAGES = ("walk", "freqs", "split", "entropy", "codes", "items", "stored",
           "pack", "offsets")
 SCAN_NAMES = ("with_indices", "rowscan")
+COUNTERS = ("encode.match_ns", "encode.launch_wait_ns", "encode.code_ns",
+            "encode.entropy_ns")
 
 
 def dev_us(e):
@@ -86,8 +95,24 @@ def first_batch(level):
     sc = torch.tensor(scal, dtype=torch.int64, device=d.device)
     st = enc.call_statics
     with program.eager():
-        length, dist = D._match_handle(d, sc, *st[:3])
-    return (d, sc, length, dist), st
+        match = D._match_handle(d, sc, *st[:3])
+    return (d, sc, *match), st, enc
+
+
+def stage_counters(enc, reps=10):
+    """The median of each of COUNTERS over `reps` launches and reads of the
+    first batch, ms; None on a checkout whose programs stamp no clock."""
+    if not hasattr(D, "STAMPS"):
+        return None
+    st = enc.call_statics
+    nch = D._nch(st[0], D.levels_mod.get_level(st[2]).chunk)
+    got = []
+    for _ in range(reps + 1):
+        with trace.request("code_stage_times"):
+            D.read_batch(D.launch_batch(*enc.last_calls[0], *st), st[1], nch)
+        got.append(trace.last_request()["counters"])
+    return {k: statistics.median(c[k] for c in got[1:]) / 1e6
+            for k in COUNTERS}
 
 
 def main():
@@ -96,17 +121,23 @@ def main():
                          text=True).stdout.strip(), flush=True)
     print(sys.version.split()[0], torch.__version__, torch.version.cuda)
     for level in (1, 6, 9):
-        ins, st = first_batch(level)
+        ins, st, enc = first_batch(level)
         bl, batch, lv, num_words = st[:4]
-        prev, rows = 0.0, []
+        prev, rows, cum = 0.0, [], {}
         for s in STAGES:
-            ms = graph_ms(_stage, ins, (bl, batch, lv, num_words, s))
+            ms = graph_ms(_stage, ins[:4], (bl, batch, lv, num_words, s))
             rows.append(f"{s} {ms:.3f} (+{ms - prev:.3f})")
-            prev = ms
+            prev = cum[s] = ms
         full = graph_ms(D._code_handle, ins, st)
         rows.append(f"full {full:.3f} (+{full - prev:.3f})")
         print(f"graph timing level {level}, ms a 1 MiB batch, cumulative "
               f"(+ the stage): " + "; ".join(rows), flush=True)
+        got = stage_counters(enc)
+        if got is not None:
+            print(f"stage counters level {level}, median ms a 1 MiB batch: "
+                  + "; ".join(f"{k} {v:.4f}" for k, v in got.items())
+                  + f"; graph-difference entropy stage "
+                  f"{cum['entropy'] - cum['split']:.4f}", flush=True)
         # the profiler loses a session's first kernel records: spin
         # kernels take that loss
         with profile(activities=[ProfilerActivity.CUDA]) as prof:

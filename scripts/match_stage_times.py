@@ -98,13 +98,13 @@ def stage_scans():
         sc = torch.tensor(scal, dtype=torch.int64, device=data.device)
         bl, batch, lv = st[:3]
         with program.eager():
-            length, dist = D._match_handle(data, sc, bl, batch, lv)
-            D._code_handle(data, sc, length, dist, *st)
+            match = D._match_handle(data, sc, bl, batch, lv)
+            D._code_handle(data, sc, *match, *st)
             torch.cuda.synchronize()
             for name, fn in (
                     ("match", lambda: D._match_handle(data, sc, bl, batch,
                                                       lv)),
-                    ("code", lambda: D._code_handle(data, sc, length, dist,
+                    ("code", lambda: D._code_handle(data, sc, *match,
                                                     *st))):
                 with profile(activities=[ProfilerActivity.CPU,
                                          ProfilerActivity.CUDA],

@@ -315,8 +315,8 @@ def test_four_cards_match_four_ranks_on_one():
     equal those of four ranks on cuda:0, the members pass the plain
     reference (benchmark/members_reference.py) and decode on cuda:3, and
     each call's record, on the replayed programs of its second call,
-    counts one probe kernel launch a batch (encode.match_kernel), both
-    stages' device time, and its rounds, members and ranks."""
+    counts one probe kernel launch a batch (encode.match_kernel), the
+    stages' device times, and its rounds, members and ranks."""
     if not torch.cuda.is_available() or torch.cuda.device_count() < 4:
         pytest.skip("needs 4 CUDA devices")
     bl, bpd = 1 << 16, 16
@@ -342,6 +342,7 @@ def test_four_cards_match_four_ranks_on_one():
         assert rec["op"] == "ShardedDeflater.compress"
         assert c["encode.match_kernel"] == members
         assert c["encode.match_ns"] > 0 and c["encode.code_ns"] > 0
+        assert c["encode.entropy_ns"] > 0 and c["encode.launch_wait_ns"] >= 0
         assert (c["shard.rounds"], c["shard.members"], c["shard.ranks"]) \
             == (-(-n // (4 * shard)), members, 4)
 

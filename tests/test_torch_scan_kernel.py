@@ -330,18 +330,17 @@ def test_code_program_replay_equals_an_eager_call_on_card(monkeypatch):
     for data, *scalars in calls:
         sc = torch.tensor(scalars, dtype=torch.int64, device=data.device)
         with program.eager():
-            length, dist = TD._match_handle(data, sc, bl, batch, level)
-            want = TD._code_handle(data, sc, length, dist, *statics)
+            match = TD._match_handle(data, sc, bl, batch, level)
+            want = TD._code_handle(data, sc, *match, *statics)
         n0 = scan.running.launches
-        first = program.run(TD._code_handle, (data, sc, length, dist),
-                            statics)
+        first = program.run(TD._code_handle, (data, sc, *match), statics)
         assert program.launched(scan.running) == SCANS_PER_BATCH[9]
-        again = program.run(TD._code_handle, (data, sc, length, dist),
-                            statics)
+        again = program.run(TD._code_handle, (data, sc, *match), statics)
         assert program.launched(scan.running) == SCANS_PER_BATCH[9]
         assert scan.running.launches == n0 + 2 * SCANS_PER_BATCH[9]
         for got in (first, again):
-            assert all(torch.equal(g, w) for g, w in zip(got, want))
+            assert all(torch.equal(g, w) for g, w in zip(
+                TD.unstamped(got), TD.unstamped(want), strict=True))
     assert program.stats["replays"] > 0
 
 

@@ -2,7 +2,8 @@
 one request record per public call, spans that nest and carry the call's
 id, the native decoder's bytes, the blocking reads of a round trip, the
 bounded ring and dispatch log, and stamps on torch.profiler's clock with
-no event of their own in the profile."""
+no event of their own in the profile. On a card (marker cuda): the program
+layer's node counts and replay spans."""
 import threading
 
 import numpy as np
@@ -208,3 +209,60 @@ def test_stamps_on_the_profilers_clock_and_no_profiler_events(member):
     assert end <= outer[3] <= end + 1_000_000
     names = {e.name() for e in events}
     assert not names & (set(rec["spans"]) | {"stamp.outer"})
+
+
+def _graph_nodes_libcuda(graph) -> int:
+    """cuGraphGetNodes, libcuda's count of a cudaGraph_t's nodes, apart
+    from the runtime entry the program layer reads (ops/stamp.py)."""
+    import ctypes
+    lib = ctypes.CDLL("libcuda.so.1")
+    fn = lib.cuGraphGetNodes
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.POINTER(ctypes.c_size_t)]
+    n = ctypes.c_size_t(0)
+    assert fn(graph.raw_cuda_graph(), None, ctypes.byref(n)) == 0
+    return n.value
+
+
+@pytest.mark.cuda
+def test_program_nodes_and_replays_on_card(data):
+    """On a card: each captured program's node count is libcuda's count of
+    its graph; a warm zstrm.compress_with_index adds, per replay, its
+    program's count to program.nodes (one match and one coding program a
+    batch) and makes one program.replay span a replay; and every such span
+    in trace.recent() encloses the profiler's cudaGraphLaunch of its
+    replay, so the ring and Kineto's host events share one clock."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from jdeflate_tpu_torch.codec import deflate as TD
+    from jdeflate_tpu_torch.codec import program
+    program.clear()
+    kw = dict(level=6, block_size=BLOCK, batch=BATCH, device="cuda")
+    jdt.compress_with_index(data, **kw)                 # captures
+    progs = {k[1]: p for k, p in program._programs.items()}
+    assert set(progs) == {TD._match_handle, TD._code_handle}
+    for p in progs.values():
+        assert p.nodes == _graph_nodes_libcuda(p.graph) > 1
+    batches = -(-len(data) // (BLOCK * BATCH))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = trace.now_ns()
+        jdt.compress_with_index(data, **kw)
+        torch.cuda.synchronize()
+        t1 = trace.now_ns()
+    rec = trace.last_request()
+    assert rec["counters"]["program.nodes"] == batches * sum(
+        p.nodes for p in progs.values())
+    replays = [s for s in trace.recent()
+               if s[0] == "program.replay" and t0 <= s[2] and s[3] <= t1]
+    assert len(replays) == 2 * batches
+    assert all(s[1] == rec["id"] for s in replays)
+    launches = sorted(
+        (e.start_ns(), e.start_ns() + e.duration_ns())
+        for e in prof.profiler.kineto_results.events()
+        if e.name().startswith("cudaGraphLaunch"))
+    assert len(launches) == len(replays), (len(launches), len(replays))
+    for (_, _, s0, s1), (l0, l1) in zip(sorted(replays, key=lambda s: s[2]),
+                                        launches):
+        assert s0 <= l0 <= l1 <= s1, (s0, l0, l1, s1)

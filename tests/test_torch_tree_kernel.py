@@ -413,20 +413,18 @@ def test_code_program_replay_equals_an_eager_call_on_card(monkeypatch):
     program.clear()
     for data, *scalars in calls:
         sc = torch.tensor(scalars, dtype=torch.int64, device=data.device)
-        length, dist = program.run(TD._match_handle, (data, sc),
-                                   (bl, batch, level))
+        match = program.run(TD._match_handle, (data, sc), (bl, batch, level))
         with program.eager():
-            want = TD._code_handle(data, sc, length, dist, *statics)
+            want = TD._code_handle(data, sc, *match, *statics)
         n0 = huffman.code_lengths.launches
-        first = program.run(TD._code_handle, (data, sc, length, dist),
-                            statics)
+        first = program.run(TD._code_handle, (data, sc, *match), statics)
         assert program.launched(huffman.code_lengths) == 2
-        again = program.run(TD._code_handle, (data, sc, length, dist),
-                            statics)
+        again = program.run(TD._code_handle, (data, sc, *match), statics)
         assert program.launched(huffman.code_lengths) == 2
         assert huffman.code_lengths.launches == n0 + 4   # eager or replay
         for got in (first, again):
-            assert all(torch.equal(g, w) for g, w in zip(got, want))
+            assert all(torch.equal(g, w) for g, w in zip(
+                TD.unstamped(got), TD.unstamped(want), strict=True))
     assert program.stats["replays"] > 0
 
 
